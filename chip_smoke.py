@@ -21,11 +21,27 @@ phases that each print one JSON line:
    zeroed just before and read just after, no host sync allowed inside
    the super-round (torch's sync debug mode raises on one), and each
    result compared with the twin's fused run on the same inputs;
-4. per-kernel times on the card against the twin's and a bound.
+4. per-kernel times on the card against the twin's and a bound;
+5. K6 unpack / K7 pack against their twins at DEFAULT_BATCH_CFG (full,
+   tape-sliced, groups-absent and alive-prefix batches) and the
+   host -> card -> host round trip of every plane;
+6. K5 solve against its twin on CNFs compiled from seeded formulas, on
+   every (vars, clauses) bucket at 8 and 64 instances, flips 0/64/4096;
+   every SAT row must satisfy its CNF and agree with the flips=0 phase;
+7. the whole analysis, SymExecWrapper(strategy="cuda-batch") +
+   fire_lasers, on becstress (2 tx, 60 s) and BECToken (3 tx, 120 s):
+   the issue sets must be [101@8] and [101@28, 101@104], with device
+   rounds, K1/K4/K6/K7 launched by each analysis, every one of K1-K7
+   launched by the two runs (counts zeroed just before each, so the
+   strategy's own warmup is part of the run), and no degraded round or
+   failed device solve; the first K5 batches of the runs are replayed
+   through the twin;
+8. the times of K5-K7 against their twins, bounds, the host link and a
+   per-plane copy_ sequence.
 
-The last three lines are the kernels JSON, the card's name and power
-limit, and {"ok": true, "device": {...}}. Any mismatch or exception
-exits non-zero without that last line. Imports nothing of JAX.
+The last three lines are the kernels JSON (K1-K7), the card's name and
+power limit, and {"ok": true, "device": {...}}. Any mismatch or
+exception exits non-zero without that last line. Imports nothing of JAX.
 """
 
 import json
@@ -144,7 +160,11 @@ def main():
         if os.path.exists(log):
             regs[name] = [ln.strip() for ln in open(log) if "registers" in ln or "spill" in ln][:12]
     emit({"phase": "build", "seconds": round(build_s, 3), "per_source": secs, "ptxas": regs, "gpu": smi})
-    run(torch.device("cuda"), batch.DEFAULT_BATCH_CFG, smi)
+    dev = torch.device("cuda")
+    entries = run(dev, batch.DEFAULT_BATCH_CFG, smi)
+    entries += run_host_half(dev, batch.DEFAULT_BATCH_CFG, smi)
+    emit({"kernels": entries})
+    print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})
     return 0
@@ -476,9 +496,489 @@ def run(dev, cfg, smi, k1_steps=64, rounds=16, steps_per_round=256):
     ]}
     emit({"phase": "timing", "k1_state": {"running": running, "children": children},
           "k4_state": {"moved": moved, "dying": dying_n}, "gpu": smi})
-    emit(kernels_line)
-    print(smi, flush=True)
+    return kernels_line["kernels"]
 
+
+
+EXPECTED_ISSUES = {"becstress": [("101", 8)], "bectoken": [("101", 28), ("101", 104)]}
+
+
+def run_host_half(dev, cfg, smi, budgets=(("becstress", 2, 60), ("bectoken", 3, 120)),
+                  formula_widths=(8, 32, 96, 192), solve_flips=(0, 64, 4096)):
+    """Phases 5-8: K6/K7 and K5 against their twins, the whole analysis
+    (SymExecWrapper + fire_lasers) on becstress and BECToken, and the
+    times of K5-K7. Returns the kernels line's entries for K5-K7."""
+    import random
+
+    import numpy as np
+    import torch
+
+    from mythril_tpu_torch.disassembler.asm import assemble
+    from mythril_tpu_torch.laser.cuda import (
+        backend, batch, convert, engine, inloop_solve, keccak, megakernel, solver, solver_cache, transfer,
+    )
+    from mythril_tpu_torch.laser.cuda.batch import StateBatch
+
+    on_card = dev.type == "cuda"
+
+    def sync():
+        if on_card:
+            torch.cuda.synchronize()
+
+    def diff(a, b):
+        """max |a - b| over two tensors (0 when equal)."""
+        if torch.equal(a, b):
+            return 0
+        return max(1, int((a.to(torch.int64) - b.to(torch.int64)).abs().max()))
+
+    max_err = {"K5": 0, "K6": 0, "K7": 0}
+    small = tuple(f for f in StateBatch._fields if f not in transfer._SKIP_DOWN and f not in transfer._BIG_DOWN)
+    dtypes = {k: dt for k, (_s, dt) in batch.batch_shapes(cfg).items()}
+
+    # ---- 5. K6 / K7 against their twins at cfg ---------------------------
+    def random_planes(seed, kind):
+        rng = np.random.default_rng(seed)
+        nb = {}
+        for name, (shape, dt) in batch.batch_shapes(cfg).items():
+            if dt == np.bool_:
+                nb[name] = rng.random(shape) < 0.5
+            else:
+                nb[name] = rng.integers(0, np.iinfo(dt).max, shape, dtype=dt)
+        if kind in ("tape_sliced", "alive_prefix"):
+            nb["tape_len"][:] = 5
+            for f in transfer._TAPE_PLANES:
+                nb[f][:, transfer._tape_cols(f, 5):] = 0
+        if kind == "groups_absent":
+            for g in ("memory", "storage"):
+                for plane in transfer._UP_GROUPS[g]:
+                    nb[plane][:] = 0
+        if kind == "alive_prefix":
+            nb["alive"][:] = False
+            nb["alive"][: cfg.lanes // 5] = True
+        return nb
+
+    xfer_cases = {}
+    for seed, kind in enumerate(("full", "tape_sliced", "groups_absent", "alive_prefix")):
+        nb = random_planes(100 + seed, kind)
+        parts = transfer.batch_parts(nb, cfg)
+        planes_k = transfer.upload(parts, dev)
+        buf, segs = convert.upload_to_torch(parts, dev)
+        planes_t = transfer.unpack_plain(buf, segs)
+        err6 = max(diff(a, b) for a, b in zip(planes_k, planes_t))
+        st = StateBatch(*planes_k)
+        up_ok = all(np.array_equal(convert.to_numpy(getattr(st, k), dtypes[k]), nb[k]) for k in nb)
+        t_used, l_used = transfer.down_plan(nb["tape_len"], nb["alive"], cfg.tape_slots)
+        err7 = max(diff(transfer.pack(st, small), transfer.pack_plain(st, small)),
+                   diff(transfer.pack(st, transfer._BIG_DOWN, t_used, l_used),
+                        transfer.pack_plain(st, transfer._BIG_DOWN, t_used, l_used)))
+        back = transfer.batch_to_host(st)
+        rows = l_used or cfg.lanes
+        down_ok = all(
+            np.array_equal(getattr(back, k)[:rows] if k in transfer._BIG_DOWN else getattr(back, k),
+                           nb[k][:rows] if k in transfer._BIG_DOWN else nb[k])
+            for k in nb if k not in transfer._SKIP_DOWN
+        )
+        max_err["K6"] = max(max_err["K6"], err6)
+        max_err["K7"] = max(max_err["K7"], err7)
+        xfer_cases[kind] = (nb, parts, st, t_used, l_used)
+        emit({"phase": "compare", "kernel": "K6/K7", "case": kind, "shipped_bytes": int(buf.numel()),
+              "t_used": t_used, "l_used": l_used, "k6_err": err6, "k7_err": err7,
+              "roundtrip_up": bool(up_ok), "roundtrip_down": bool(down_ok)})
+        if err6 or err7 or not up_ok or not down_ok:
+            raise AssertionError(f"K6/K7 differ from their twins or lose planes on the {kind} batch")
+    sync()
+
+    # ---- 6. K5 against its twin ------------------------------------------
+    from mythril_tpu_torch.smt import Not, Or, UGT, ULT, symbol_factory
+
+    def formula_sets(width, n, seed):
+        rng = random.Random(seed)
+        a, b, c = (symbol_factory.BitVecSym(f"k5w{width}_{seed}_{x}", width) for x in "abc")
+
+        def val(v):
+            return symbol_factory.BitVecVal(v % (1 << width), width)
+
+        out = []
+        for k in range(n):
+            base = [a + val(k) == b, ULT(a, val(rng.randrange(1 << width)))]
+            extra = rng.sample([
+                UGT(b, val(rng.randrange(1 << width))), b - a == c,
+                Or(a == val(5), b == val(rng.randrange(1 << width))), Not(c == val(9)),
+                a & val(0xFF) == val(rng.randrange(256)), c == val(rng.randrange(1 << width)),
+            ], rng.randrange(1, 4))
+            out.append([t.raw for t in base + extra])
+        return out
+
+    ladder = solver.shape_ladder()
+    by_bucket = {step: [] for step in ladder}
+    for width in formula_widths:
+        for inst in solver.compile_cnf_batch(formula_sets(width, 12, width), solver.MAX_VARS, solver.MAX_CLAUSES):
+            if inst is None or inst.trivial is not None:
+                continue
+            for step in ladder:
+                if inst.nvars <= step[0] and inst.clause_arr.shape[0] <= step[1]:
+                    by_bucket[step].append(inst)
+                    break
+    rng5 = np.random.default_rng(5)
+
+    def satisfied(lits, assign):
+        """bool[I]: every real clause has a true literal under assign."""
+        var = (lits.abs() - 1).clamp(min=0).to(torch.int64)
+        val = torch.gather(assign, 1, var.reshape(lits.shape[0], -1)).reshape(lits.shape)
+        true = (lits != 0) & (val == (lits > 0))
+        return (true.any(-1) | (lits == 0).all(-1)).all(-1)
+
+    k5_cases = []
+    for (V_b, C_b), insts in by_bucket.items():
+        if not insts:
+            raise AssertionError(f"no seeded formula compiled into the ({V_b}, {C_b}) bucket")
+        for n_inst in (8, 40):
+            chunk = [insts[i % len(insts)] for i in range(n_inst)]
+            lits, nvars, is_input, V = solver._pack_batch(chunk, V_b, C_b)
+            warm = np.where(rng5.random(is_input.shape) < 0.25, rng5.choice([-1, 1], is_input.shape), 0)
+            warm = np.where(np.arange(V)[None, :] < nvars[:, None], warm, 0).astype(np.int8)
+            ops = convert.solver_operands_to_torch((lits, nvars, is_input, warm), dev)
+            p1 = None
+            for flips in solve_flips:
+                seed = 1000 + flips + n_inst
+                k_out = solver.solve(*ops, flips, seed, device=dev)
+                t_out = solver.solve_plain(*ops, flips, seed)
+                err = max(diff(a, b) for a, b in zip(k_out, t_out))
+                max_err["K5"] = max(max_err["K5"], err)
+                status, assign, sweeps = k_out
+                sat = status == solver.SAT
+                sat_ok = bool(satisfied(ops[0], assign)[sat].all())
+                if p1 is None:
+                    p1 = status
+                    p1_ok = True
+                else:
+                    decided = p1 != solver.UNKNOWN
+                    p1_ok = bool((status[decided] == p1[decided]).all()) and bool(
+                        (p1[status == solver.UNSAT] == solver.UNSAT).all())
+                emit({"phase": "compare", "kernel": "K5", "bucket": [V_b, C_b], "I": int(lits.shape[0]),
+                      "flips": flips, "status": {str(c): int((status == c).sum()) for c in
+                                                 (solver.SAT, solver.UNSAT, solver.UNKNOWN)},
+                      "sweeps_max": int(sweeps.max()), "sweeps_mean": round(float(sweeps.float().mean()), 3),
+                      "err": err, "sat_rows_satisfy": sat_ok, "phase1_consistent": p1_ok})
+                if err or not sat_ok or not p1_ok:
+                    raise AssertionError(f"K5 differs from its twin or is unsound at bucket ({V_b}, {C_b}), "
+                                         f"I={lits.shape[0]}, flips={flips}")
+                k5_cases.append(((V_b, C_b), ops, flips, seed, sweeps))
+
+    # ---- 7. the whole analysis -------------------------------------------
+    from mythril_tpu_torch.analysis.security import fire_lasers
+    from mythril_tpu_torch.analysis.symbolic import SymExecWrapper
+    from mythril_tpu_torch.ethereum.evmcontract import EVMContract
+    from mythril_tpu_torch.obs import catalog as cat
+    from mythril_tpu_torch.robustness import retry
+
+    counters = {"K1": (engine, "launches"), "K2": (keccak, "launches"), "K3": (inloop_solve, "launches"),
+                "K4": (megakernel, "launches"), "K5": (solver, "launches"),
+                "K6": (transfer, "unpack_launches"), "K7": (transfer, "pack_launches")}
+
+    def zero_counts():
+        for mod, attr in counters.values():
+            setattr(mod, attr, 0)
+
+    def read_counts():
+        return {k: getattr(mod, attr) for k, (mod, attr) in counters.items()}
+
+    captured = []  # the first K5 batches of the main path (the strategy's warmup batch first)
+    capturing = [False]
+    uncompiled = []  # the first constraint set of an analysis that compiled to no CNF instance
+    first_up, first_down = [], []
+    feas_failures = [0]
+    enqueue_s = [0.0]
+    cnf = {"sets": 0, "none": 0, "trivial": 0, "instances": 0}  # what the analyses handed the solver
+    warm = {"launches": {k: 0 for k in counters}, "s": 0.0}  # the strategy's own warmup, inside the main path
+    in_warmup = [False]
+    orig = (solver.solve, solver.feasibility_batch, megakernel.run_fused, transfer.batch_to_device,
+            transfer.batch_to_host, solver.compile_cnf_batch, backend._do_warmup)
+
+    def warm_rec(key, event):
+        before, t = read_counts(), time.perf_counter()
+        in_warmup[0] = True
+        try:
+            return orig[6](key, event)
+        finally:
+            in_warmup[0] = False
+            warm["s"] += time.perf_counter() - t
+            for k, v in read_counts().items():
+                warm["launches"][k] += v - before[k]
+
+    def cnf_rec(sets, *a, **k):
+        out = orig[5](sets, *a, **k)
+        if capturing[0] and not in_warmup[0]:
+            if not uncompiled:
+                uncompiled.extend(cs for cs, i in zip(sets, out) if i is None)
+            cnf["sets"] += len(out)
+            cnf["none"] += sum(i is None for i in out)
+            cnf["trivial"] += sum(i is not None and i.trivial is not None for i in out)
+            cnf["instances"] += sum(i is not None and i.trivial is None for i in out)
+        return out
+
+    def solve_rec(lits, nvars, is_input, warm, flips, seed, device="cuda"):
+        out = orig[0](lits, nvars, is_input, warm, flips, seed, device=device)
+        if capturing[0] and len(captured) < 4:
+            captured.append((convert.solver_operands_to_numpy((lits, nvars, is_input, warm)), flips, seed,
+                             [o.cpu().numpy() for o in out]))
+        return out
+
+    def feas_rec(*a, **k):
+        try:
+            return orig[1](*a, **k)
+        except Exception:
+            feas_failures[0] += 1
+            raise
+
+    def fused_rec(*a, **k):
+        t = time.perf_counter()
+        out = orig[2](*a, **k)
+        enqueue_s[0] += time.perf_counter() - t
+        return out
+
+    def up_rec(np_batch, cfg_, device="cuda"):
+        if not first_up and int(np_batch["alive"].sum()) > 1:
+            first_up.append({k: v.copy() for k, v in np_batch.items()})
+        return orig[3](np_batch, cfg_, device=device)
+
+    def down_rec(st, n_shards=1):
+        if not first_down and int(st.alive.sum()) > 1:
+            first_down.append(StateBatch(*(x.clone() for x in st)))
+        return orig[4](st, n_shards=n_shards)
+
+    contracts = {
+        "becstress": assemble(STRESS_SRC),
+        "bectoken": assemble(open(os.path.join(HERE, "bench_contracts", "bectoken.asm")).read()),
+    }
+    e2e_counts = {k: 0 for k in counters}
+    solver.solve, solver.feasibility_batch, megakernel.run_fused = solve_rec, feas_rec, fused_rec
+    transfer.batch_to_device, transfer.batch_to_host = up_rec, down_rec
+    solver.compile_cnf_batch, backend._do_warmup = cnf_rec, warm_rec
+    k5_from_sets = 0
+    try:
+        for name, tx, budget in budgets:
+            runtime = contracts[name]
+            n = len(runtime)
+            creation = assemble(
+                f"PUSH2 {n}\nPUSH2 :code\nPUSH1 0x00\nCODECOPY\nPUSH2 {n}\nPUSH1 0x00\nRETURN\ncode:"
+            ).hex() + runtime.hex()
+            run_cfg = cfg
+            for attempt in range(2):
+                backend.DEFAULT_BATCH_CFG = run_cfg
+                retry.BREAKER.reset()
+                degraded0 = cat.DEGRADED_ROUNDS_TOTAL.value()
+                feas_failures[0] = 0
+                enqueue_s[0] = 0.0
+                snap0 = solver_cache.GLOBAL.snapshot()
+                warm["launches"], warm["s"] = {k: 0 for k in counters}, 0.0
+                # the main path: the kernels are built (phase 1), and the
+                # strategy warms its config itself, inside the run
+                sync()
+                zero_counts()
+                capturing[0] = True
+                t1 = time.time()
+                sym = SymExecWrapper(EVMContract(code=runtime.hex(), creation_code=creation, name=name),
+                                     address=0x1234, strategy="cuda-batch", execution_timeout=budget,
+                                     transaction_count=tx, max_depth=128)
+                issues = sorted({(i.swc_id, i.address) for i in fire_lasers(sym)})
+                sync()
+                wall = time.time() - t1
+                capturing[0] = False
+                counts = read_counts()
+                strat = backend.find_tpu_strategy(sym.laser.strategy)
+                if strat.device_rounds > 0 or run_cfg.device_engage_after_s == 0.0:
+                    break
+                emit({"phase": "e2e_rerun", "contract": name, "reason": "finished on the host before the "
+                      f"{run_cfg.device_engage_after_s} s engagement delay; rerun with device_engage_after_s=0.0"})
+                run_cfg = run_cfg._replace(device_engage_after_s=0.0)
+            backend.DEFAULT_BATCH_CFG = cfg
+            snap = solver_cache.GLOBAL.snapshot()
+            degraded = cat.DEGRADED_ROUNDS_TOTAL.value() - degraded0
+            k5_from_sets += counts["K5"] - warm["launches"]["K5"]
+            for k in e2e_counts:
+                e2e_counts[k] += counts[k]
+            emit({"phase": "e2e", "contract": name, "tx": tx, "budget_s": budget,
+                  "device_engage_after_s": run_cfg.device_engage_after_s, "issues": issues,
+                  "expected": EXPECTED_ISSUES[name], "wall_s": round(wall, 3),
+                  "strategy_warmup_s": round(warm["s"], 3),
+                  "device_rounds": strat.device_rounds, "fused_rounds": strat.fused_rounds,
+                  "fused_syncs": strat.fused_syncs, "in_loop_unsat_kills": strat.in_loop_unsat_kills,
+                  "device_steps_retired": strat.device_steps_retired, "device_wall_s": round(strat.device_wall_s, 3),
+                  "run_fused_enqueue_s": round(enqueue_s[0], 3),
+                  "run_fused_enqueue_share_of_wall": round(enqueue_s[0] / wall, 4) if wall else None,
+                  "total_states": sym.laser.total_states,
+                  "solver_cache": {k: snap[k] - snap0[k] for k in snap if isinstance(snap[k], (int, float))
+                                   and isinstance(snap0.get(k), (int, float))},
+                  "launches": counts, "launches_in_strategy_warmup": warm["launches"],
+                  "degraded_rounds": strat.degraded_rounds, "degraded_rounds_total": degraded,
+                  "breaker": retry.BREAKER.state(), "breaker_trips": retry.BREAKER.trips,
+                  "device_solve_failures": feas_failures[0], "gpu": smi})
+            if issues != EXPECTED_ISSUES[name]:
+                raise AssertionError(f"{name}: issues {issues}, expected {EXPECTED_ISSUES[name]}")
+            if strat.device_rounds <= 0:
+                raise AssertionError(f"{name}: no device round")
+            missing = [k for k in ("K1", "K4", "K6", "K7") if counts[k] - warm["launches"][k] <= 0]
+            if on_card and missing:
+                raise AssertionError(f"{name}: kernels never launched in the analysis: {missing}")
+            if (strat.degraded_rounds or degraded or retry.BREAKER.state() != "closed" or retry.BREAKER.trips
+                    or feas_failures[0]):
+                raise AssertionError(f"{name}: a round degraded or a device solve failed")
+    finally:
+        solver.solve, solver.feasibility_batch, megakernel.run_fused = orig[:3]
+        transfer.batch_to_device, transfer.batch_to_host = orig[3:5]
+        solver.compile_cnf_batch, backend._do_warmup = orig[5:]
+        backend.DEFAULT_BATCH_CFG = cfg
+    if on_card:
+        never = [k for k, v in e2e_counts.items() if v <= 0]
+        if never:
+            raise AssertionError(f"kernels the main path never launched: {never}")
+    blast = None
+    if uncompiled:  # how far past the caps the analyses' sets are
+        inst = solver.compile_cnf(uncompiled[0], max_vars=1 << 40, max_clauses=1 << 40)
+        blast = {"terms": len(uncompiled[0]), "blastable": inst is not None,
+                 "vars": None if inst is None else int(inst.nvars),
+                 "clauses": None if inst is None else int(inst.clause_arr.shape[0]),
+                 "caps": [solver.MAX_VARS, solver.MAX_CLAUSES]}
+    emit({"phase": "e2e_solver", "cnf": cnf, "k5_launches_main_path": e2e_counts["K5"],
+          "k5_launches_from_analysis_sets": k5_from_sets, "first_uncompiled_set": blast})
+    if k5_from_sets == 0:
+        emit({"phase": "finding", "kernel": "K5", "text": f"K5's {e2e_counts['K5']} main-path launch(es) were "
+              f"the strategy's own warmup batch: of the {cnf['sets']} constraint sets the analyses handed "
+              f"the device solver, {cnf['none']} compiled to no CNF instance (past the caps or un-blastable) "
+              f"and {cnf['trivial']} were trivial; the first such set blasts to {blast}"})
+    for i, (ops_np, flips, seed, outs) in enumerate(captured):
+        ops = convert.solver_operands_to_torch(ops_np, dev)
+        t_out = solver.solve_plain(*ops, flips, seed)
+        err = max(diff(torch.as_tensor(o, device=dev), t) for o, t in zip(outs, t_out))
+        max_err["K5"] = max(max_err["K5"], err)
+        emit({"phase": "compare", "kernel": "K5", "case": f"main-path batch {i}", "I": int(ops_np[0].shape[0]),
+              "bucket": [int(ops_np[2].shape[1]), int(ops_np[0].shape[1])], "flips": flips, "err": err,
+              "sweeps_max": int(outs[2].max())})
+        if err:
+            raise AssertionError(f"K5 differs from its twin on main-path batch {i}")
+
+    # ---- 8. times on the card ----------------------------------------------
+    def time_ms(fn, reps=20):
+        fn()
+        sync()
+        reps = reps if on_card else 1
+        if on_card:
+            e0 = torch.cuda.Event(enable_timing=True)
+            e1 = torch.cuda.Event(enable_timing=True)
+            e0.record()
+            for _ in range(reps):
+                fn()
+            e1.record()
+            torch.cuda.synchronize()
+            return e0.elapsed_time(e1) / reps
+        t = time.perf_counter()
+        fn()
+        return (time.perf_counter() - t) * 1e3
+
+    def wall_ms(fn, reps=10):
+        fn()
+        sync()
+        t = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        sync()
+        return (time.perf_counter() - t) * 1e3 / reps
+
+    # K5 at the analysis's own shapes when it launched, else the smallest bucket at SOLVE_FLIPS
+    if captured:
+        ops_np, flips5, seed5, _outs = captured[0]
+        ops5 = convert.solver_operands_to_torch(ops_np, dev)
+    else:
+        pick = [c for c in k5_cases if c[2] == backend.SOLVE_FLIPS][0]
+        ops5, flips5, seed5 = pick[1], pick[2], pick[3]
+    ms5 = time_ms(lambda: solver.solve(*ops5, flips5, seed5, device=dev))
+    plain5 = time_ms(lambda: solver.solve_plain(*ops5, flips5, seed5), reps=3)
+    I5, V5 = ops5[2].shape
+    bytes5 = sum(t.numel() * t.element_size() for t in ops5) + I5 * (4 + V5 + 4)
+    sweeps5 = solver.solve(*ops5, flips5, seed5, device=dev)[2]
+
+    # K6/K7 at the first multi-lane batch the analysis uploaded/downloaded
+    nb6 = first_up[0] if first_up else xfer_cases["tape_sliced"][0]
+    st7 = first_down[0] if first_down else xfer_cases["alive_prefix"][2]
+    parts6 = transfer.batch_parts(nb6, cfg)
+    staged = transfer.stage(parts6, dev) if on_card else None
+    segs6, shipped6 = transfer._up_spec(parts6)
+    ship6 = int(sum(a.nbytes for a in shipped6))
+    full6 = int(sum(s.rows * s.full for s in segs6))
+    if on_card:
+        ms6 = time_ms(lambda: transfer.unpack(staged))
+        plain6 = time_ms(lambda: transfer.unpack_plain(staged.buf[staged.header:], segs6), reps=5)
+        link_up = wall_ms(lambda: transfer.stage(parts6, dev))
+        host_buf = torch.empty(staged.buf.numel(), dtype=torch.uint8, pin_memory=True)
+        pinned_up = time_ms(lambda: staged.buf.copy_(host_buf, non_blocking=True))
+
+        def per_plane_up():
+            for s_, plane in zip(segs6, staged.planes):
+                if s_.ship:
+                    src = staged.buf[staged.header + s_.src_off: staged.header + s_.src_off + s_.rows * s_.ship]
+                    plane.view(-1).view(torch.uint8).view(s_.rows, s_.full)[:, : s_.ship].copy_(
+                        src.view(s_.rows, s_.ship))
+        per_plane6 = time_ms(per_plane_up)
+    else:
+        ms6 = plain6 = time_ms(lambda: transfer.upload(parts6, dev))
+        link_up = pinned_up = per_plane6 = None
+    bytes6 = ship6 + staged.header if on_card else ship6
+    bytes6 += full6
+
+    a7 = st7.alive.cpu().numpy()
+    t7, l7 = transfer.down_plan(st7.tape_len.cpu().numpy(), a7, cfg.tape_slots)
+    ms7 = time_ms(lambda: (transfer.pack(st7, small), transfer.pack(st7, transfer._BIG_DOWN, t7, l7)))
+    plain7 = time_ms(lambda: (transfer.pack_plain(st7, small), transfer.pack_plain(st7, transfer._BIG_DOWN, t7, l7)),
+                     reps=5)
+    out_small, out_big = transfer.pack(st7, small), transfer.pack(st7, transfer._BIG_DOWN, t7, l7)
+    down_bytes = out_small.numel() + out_big.numel()
+    bytes7 = 2 * down_bytes
+    if on_card:
+        link_down = wall_ms(lambda: transfer.batch_to_host(st7))
+        dev_buf = torch.cat([out_small, out_big])
+        host7 = torch.empty(dev_buf.numel(), dtype=torch.uint8, pin_memory=True)
+        pinned_down = time_ms(lambda: host7.copy_(dev_buf, non_blocking=True))
+        scratch7 = torch.empty(down_bytes, dtype=torch.uint8, device=dev)
+
+        def per_plane_down():
+            off = 0
+            for fields, t_, l_ in ((small, None, None), (transfer._BIG_DOWN, t7, l7)):
+                for f in fields:
+                    x = getattr(st7, f)
+                    rows, ship, srow = transfer._down_cut(x, f, t_, l_)
+                    xb = x.view(-1).view(torch.uint8).view(x.shape[0], srow)
+                    scratch7[off: off + rows * ship].view(rows, ship).copy_(xb[:rows, :ship])
+                    off += rows * ship
+        per_plane7 = time_ms(per_plane_down)
+    else:
+        link_down = pinned_down = per_plane7 = None
+
+    emit({"phase": "timing_host_half", "gpu": smi,
+          "K5": {"I": int(I5), "V": int(V5), "C": int(ops5[0].shape[1]), "flips": flips5,
+                 "from_main_path": bool(captured), "sweeps_max": int(sweeps5.max()),
+                 "sweeps_mean": round(float(sweeps5.float().mean()), 3), "bytes": int(bytes5)},
+          "K5_sweeps_by_bucket": {f"{b[0]}x{b[1]}/I{int(o[0].shape[0])}/f{f}": int(sw.max())
+                                  for b, o, f, _s, sw in k5_cases},
+          "K6": {"from_analysis": bool(first_up), "shipped_bytes": ship6, "plane_bytes": full6,
+                 "upload_link_ms": link_up, "pinned_copy_ms": pinned_up, "per_plane_copy_ms": per_plane6},
+          "K7": {"from_analysis": bool(first_down), "t_used": t7, "l_used": l7, "downloaded_bytes": int(down_bytes),
+                 "batch_to_host_ms": link_down, "pinned_copy_ms": pinned_down, "per_plane_copy_ms": per_plane7}})
+
+    def entry(kid, name, source, replaces, ms, plain, nbytes):
+        return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
+                "launches": e2e_counts[kid], "max_abs_err": max_err[kid], "ms": round(ms, 6),
+                "plain_ms": round(plain, 6), "bound_ms": round(nbytes / HBM_BYTES_PER_S * 1e3, 9),
+                "bound_by": "bytes", "library_ms": None}
+
+    return [
+        entry("K5", "K5 solve", "mythril_tpu_torch/csrc/solve.cu", "mythril_tpu/laser/tpu/solver_jax.py:457",
+              ms5, plain5, bytes5),
+        entry("K6", "K6 unpack", "mythril_tpu_torch/csrc/transfer.cu", "mythril_tpu/laser/tpu/transfer.py:236",
+              ms6, plain6, bytes6),
+        entry("K7", "K7 pack", "mythril_tpu_torch/csrc/transfer.cu", "mythril_tpu/laser/tpu/transfer.py:410",
+              ms7, plain7, bytes7),
+    ]
 
 if __name__ == "__main__":
     try:

@@ -22,15 +22,20 @@ JUMP/JUMPI fast path over resolved targets), laser/evm/strategy/basic.py
 hook-dispatch gate (analysis/module/gating.py), and the solver cache's
 static must-UNSAT seeding (laser/tpu/solver_cache.py via bridge.py).
 
-Results are cached per bytecode. (The reference's obs counters and
-spans are left out: the observability layer is not ported yet.)
+Results are cached per bytecode; ``stats()`` exposes the cumulative
+analysis wall time for the bench protocol (``static_pass_s`` /
+``taint_pass_s``).
 
 See docs/STATIC_PASS.md and docs/TAINT_PASS.md for the lattices and the
 soundness arguments.
 """
 
+import time
 from collections import OrderedDict
 from typing import Union
+
+from mythril_tpu_torch import obs as _obs
+from mythril_tpu_torch.obs import catalog as _cat
 
 from mythril_tpu_torch.analysis.static_pass.blocks import (
     INTERESTING,
@@ -39,6 +44,7 @@ from mythril_tpu_torch.analysis.static_pass.blocks import (
     decompose,
     scan,
 )
+from mythril_tpu_torch.analysis.static_pass import taint as _taint
 from mythril_tpu_torch.analysis.static_pass.tables import (
     FACT_SCHEMA_VERSION,
     INTEREST_INF,
@@ -73,6 +79,8 @@ __all__ = [
     "build",
     "decompose",
     "scan",
+    "reset_stats",
+    "stats",
 ]
 
 # analyses are small (a few dense arrays per contract) but the cache must
@@ -93,9 +101,36 @@ def analyze(code: Union[bytes, bytearray, str]) -> StaticAnalysis:
     hit = _CACHE.get(code)
     if hit is not None:
         _CACHE.move_to_end(code)
+        _cat.STATIC_CACHE_HITS_TOTAL.inc()
         return hit
-    result = build(code)
+    t0 = time.perf_counter()
+    with _obs.TRACER.span("static_pass", tid="static", code_len=len(code)):
+        result = build(code)
+    _cat.STATIC_PASS_S.inc(time.perf_counter() - t0)
+    _cat.STATIC_CONTRACTS_TOTAL.inc()
     _CACHE[code] = result
     while len(_CACHE) > _CACHE_CAP:
         _CACHE.popitem(last=False)
     return result
+
+
+def stats() -> dict:
+    """Cumulative pass cost counters (bench protocol: static_pass_s /
+    taint_pass_s). ``taint_wall_s`` is the stage-2 share of ``wall_s``
+    (taint.compute runs inside build, so it is included in both).
+
+    Thin view over the obs metrics registry (obs/catalog.py) — the
+    counters themselves live there."""
+    return {
+        "wall_s": _cat.STATIC_PASS_S.value(),
+        "contracts": int(_cat.STATIC_CONTRACTS_TOTAL.value()),
+        "cache_hits": int(_cat.STATIC_CACHE_HITS_TOTAL.value()),
+        "taint_wall_s": _taint.stats()["wall_s"],
+    }
+
+
+def reset_stats() -> None:
+    _cat.STATIC_PASS_S.reset()
+    _cat.STATIC_CONTRACTS_TOTAL.reset()
+    _cat.STATIC_CACHE_HITS_TOTAL.reset()
+    _taint.reset_stats()

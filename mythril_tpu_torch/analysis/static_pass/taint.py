@@ -1,6 +1,6 @@
 """Taint + value-interval dataflow: the second static-analysis stage.
 
-Runs over the block CFG (blocks.py, absint.py) through the generic engine in dataflow.py. Each
+Runs over the block CFG through the generic engine in dataflow.py. Each
 abstract stack slot is a ``(taint, lo, hi)`` triple:
 
 * ``taint`` — a bitmask of attacker-provenance classes the dynamic value
@@ -28,11 +28,13 @@ tables.StaticAnalysis and consumed by three layers:
   per-pc SWC candidate bits harvested against the visited plane.
 """
 
+import time
 from typing import Dict, List, NamedTuple, Optional, Tuple
 
 import numpy as np
 
 from mythril_tpu_torch.analysis.static_pass import dataflow
+from mythril_tpu_torch.obs import catalog as _cat
 from mythril_tpu_torch.analysis.static_pass.absint import _FOLD, MASK, MAX_TRACK
 from mythril_tpu_torch.analysis.static_pass.blocks import (
     JUMP,
@@ -173,6 +175,15 @@ def _arith_safe(
             return base_hi ** exp_hi <= MASK
         return False
     return False
+
+
+def stats() -> Dict[str, float]:
+    """Thin view over the obs registry (obs/catalog.py)."""
+    return {"wall_s": _cat.TAINT_PASS_S.value()}
+
+
+def reset_stats() -> None:
+    _cat.TAINT_PASS_S.reset()
 
 
 def _interval(op: int, args: List[Tuple[int, int, int]]) -> Tuple[int, int]:
@@ -370,6 +381,7 @@ def compute(
     stage-1 successor table so the call-ordering fixpoint walks exactly
     the over-approximate CFG the rest of the pass trusts.
     """
+    t0 = time.perf_counter()
     n = len(blocks)
     taint_mask = np.zeros(code_len, np.uint8)
     jumpi_verdict = np.zeros(code_len, np.int8)
@@ -536,6 +548,7 @@ def compute(
         module_relevance[insn.pc] = rel
         swc_mask[insn.pc] = swc
 
+    _cat.TAINT_PASS_S.inc(time.perf_counter() - t0)
     return TaintFacts(
         taint_mask=taint_mask,
         jumpi_verdict=jumpi_verdict,

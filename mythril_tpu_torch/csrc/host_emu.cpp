@@ -1,13 +1,17 @@
 // Host emulation of the kernels' lane logic, for the CPU tests: the same
 // headers compiled as plain C++ (-DMT_HOST_EMU), with loops over lanes
-// standing in for the grids of step.cu, inloop.cu, megakernel.cu and
-// keccak.cu. Built with g++ by tests/test_torch_kernel_logic.py; never
+// standing in for the grids of step.cu, inloop.cu, megakernel.cu,
+// keccak.cu, solve.cu and transfer.cu. Built with g++ by tests/test_torch_kernel_logic.py; never
 // used on the card.
 #include <stdint.h>
 
 #include "inloop.cuh"
 #include "megakernel.cuh"
+#include "solve.cuh"
 #include "step.cuh"
+#include "transfer.cuh"
+
+#include <vector>
 
 struct HostRow {
   const uint8_t* row;
@@ -83,6 +87,30 @@ int emu_keccak(const uint8_t* data, const int32_t* length, uint8_t* out, int row
     HostRow g{data + (int64_t)r * n, n};
     keccak256_padded(g, length[r], max_blocks, out + (int64_t)r * 32);
   }
+  return 0;
+}
+
+// K5: one instance at a time, one "thread"
+int emu_solve(const int32_t* lits, const int32_t* nvars, const uint8_t* is_input,
+              const int8_t* warm, int32_t* status, uint8_t* assign, int32_t* sweeps, int I, int C,
+              int V, int flips, uint32_t seed) {
+  std::vector<int8_t> val(V), fixed(V);
+  std::vector<int32_t> upd(V);
+  SolveFlags f;
+  for (int i = 0; i < I; ++i)
+    solve_instance(lits, nvars, is_input, warm, status, assign, sweeps, C, V, flips, seed, i,
+                   val.data(), fixed.data(), upd.data(), &f, 0, 1);
+  return 0;
+}
+
+// K6 / K7 over host pointers (the table's pointers are host addresses)
+int emu_unpack(const uint8_t* buf, const int64_t* table, int nseg) {
+  for (int s = 0; s < nseg; ++s) unpack_segment(buf, table + s * SEG_COLS, 0, 1);
+  return 0;
+}
+
+int emu_pack(uint8_t* out, const int64_t* table, int nseg) {
+  for (int s = 0; s < nseg; ++s) pack_segment(out, table + s * SEG_COLS, 0, 1);
   return 0;
 }
 }

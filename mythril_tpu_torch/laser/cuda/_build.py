@@ -8,11 +8,24 @@ ctypes. Nothing includes PyTorch's headers, so a build takes seconds,
 not minutes. Pointers travel as 64-bit ``c_void_p``; each C entry point
 launches on the caller's stream and returns ``cudaGetLastError()``,
 which ``check`` raises on.
+
+Every failure of a kernel or of its build, and every device or dtype
+misuse a wrapper detects, raises ``KernelError``. A fault inside a
+running kernel (an illegal address, a trap) is not seen at its launch:
+CUDA reports it at the next call that synchronises or launches, where
+torch raises its own error. ``sync_point`` turns that error into
+``KernelError`` where the port reads results back, and
+``reraise_kernel_fault`` does so in every handler. The host half copied
+from the reference degrades to host rounds on most exceptions; its
+handlers call ``reraise_kernel_fault`` first, so a broken kernel
+surfaces instead of turning into a silent host run.
 """
 
+import contextlib
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
@@ -22,7 +35,7 @@ import torch
 PKG_DIR = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 CSRC = os.path.join(PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(PKG_DIR, "_build")
-SOURCES = ("keccak", "step", "inloop", "megakernel")
+SOURCES = ("keccak", "step", "inloop", "megakernel", "solve", "transfer")
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-lineinfo",
@@ -32,16 +45,62 @@ _LIBS = {}
 BUILD_SECONDS = {}
 
 
+class KernelError(RuntimeError):
+    """A kernel failed to build, launch or run, or a wrapper was misused."""
+
+
+# how torch words a CUDA runtime error it met after a launch (a plain
+# RuntimeError in older releases, torch.AcceleratorError in newer ones)
+_CUDA_FAULT = re.compile(r"CUDA (\w+ )?error|CUDA kernel errors|device-side assert")
+
+
+def as_kernel_error(exc: BaseException):
+    """The KernelError that ``exc`` stands for, or None when it is none.
+
+    Allocation failures are not kernel faults: the reference degrades
+    them to host rounds, and so does the port."""
+    if isinstance(exc, KernelError):
+        return exc
+    text = str(exc)
+    if isinstance(exc, torch.cuda.OutOfMemoryError) or "out of memory" in text:
+        return None
+    accel = getattr(torch, "AcceleratorError", ())
+    if isinstance(exc, accel) or (isinstance(exc, RuntimeError) and _CUDA_FAULT.search(text)):
+        err = KernelError(f"a kernel faulted (reported after its launch): {text}")
+        err.__cause__ = exc
+        return err
+    return None
+
+
+def reraise_kernel_fault(exc: BaseException) -> None:
+    """Raise the KernelError ``exc`` stands for; return if it is none.
+    Every degrade handler around a device call calls this first."""
+    err = as_kernel_error(exc)
+    if err is not None:
+        raise err
+
+
+@contextlib.contextmanager
+def sync_point():
+    """Wrap a read of device results: a kernel's fault shows up there
+    first, and leaves as KernelError."""
+    try:
+        yield
+    except Exception as e:
+        reraise_kernel_fault(e)
+        raise
+
+
 def resolve_device(device) -> torch.device:
     """The device an entry point runs on; CUDA must exist if asked for."""
     dev = torch.device(device)
     if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
+        raise KernelError(
             "mythril_tpu_torch: CUDA is not available; pass device='cpu' "
             "to run the plain PyTorch path"
         )
     if dev.type not in ("cuda", "cpu"):
-        raise ValueError(f"unsupported device {device!r}")
+        raise KernelError(f"unsupported device {device!r}")
     return dev
 
 
@@ -50,7 +109,7 @@ def check_on(device, *tensors) -> torch.device:
     dev = resolve_device(device)
     for t in tensors:
         if t.device.type != dev.type:
-            raise ValueError(f"tensor on {t.device}, entry point asked to run on {dev}")
+            raise KernelError(f"tensor on {t.device}, entry point asked to run on {dev}")
     return dev
 
 
@@ -61,7 +120,7 @@ def _nvcc() -> str:
     ):
         if cand and os.path.exists(cand):
             return cand
-    raise RuntimeError("nvcc not found (set CUDA_HOME)")
+    raise KernelError("nvcc not found (set CUDA_HOME)")
 
 
 def _digest() -> str:
@@ -103,7 +162,7 @@ def build_all() -> dict:
         os.replace(tmp, out)
     if failed:
         logs = "\n".join(open(os.path.join(BUILD_DIR, f"{n}.log")).read()[-4000:] for n in failed)
-        raise RuntimeError(f"nvcc failed for {failed}:\n{logs}")
+        raise KernelError(f"nvcc failed for {failed}:\n{logs}")
     return dict(BUILD_SECONDS)
 
 
@@ -144,7 +203,9 @@ def stream(device) -> ctypes.c_void_p:
     return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
 
 
-def check(rc: int, what: str, lib_name: str = "keccak") -> None:
+def check(rc: int, what: str, lib_name: str) -> None:
+    """Raise KernelError when a C entry point of ``lib_name`` returned a
+    nonzero ``cudaGetLastError``."""
     if rc != 0:
         msg = library(lib_name).mt_error_string(rc).decode()
-        raise RuntimeError(f"{what}: CUDA error {rc} ({msg})")
+        raise KernelError(f"{what}: CUDA error {rc} ({msg})")

@@ -90,9 +90,11 @@ class BatchConfig(NamedTuple):
 
 
 # The production batch shape: a copy of the reference backend's
-# DEFAULT_BATCH_CFG (mythril_tpu/laser/tpu/backend.py:75-98). The
-# scheduler gates (min_device_frontier, device_engage_after_s) belong to
-# the host backend, which is not ported yet; they are kept for parity.
+# DEFAULT_BATCH_CFG (mythril_tpu/laser/tpu/backend.py:75-98), which
+# backend.DEFAULT_BATCH_CFG names. 32 storage slots hold symbolic
+# keccak-rooted keys on the device; the scheduler gates make the device
+# join once the analysis has run 1.5 s, so contracts the host finishes
+# sooner never pay a device round.
 DEFAULT_BATCH_CFG = BatchConfig(
     lanes=512,
     stack_slots=32,
@@ -584,3 +586,34 @@ def build_batch(cfg: BatchConfig, lane_specs, device="cuda") -> StateBatch:
     from mythril_tpu_torch.laser.cuda import convert
 
     return convert.batch_to_torch(np_batch, dev)
+
+
+# -- host readers over a downloaded batch (numpy planes, transfer.batch_to_host)
+
+
+def read_path(st: StateBatch, lane: int):
+    """Host helper: lane's path condition as [(tape id, polarity)]."""
+    n = int(np.asarray(st.path_len)[lane])
+    ids = np.asarray(st.path_id)[lane, :n]
+    signs = np.asarray(st.path_sign)[lane, :n]
+    return [(int(i), bool(s)) for i, s in zip(ids, signs)]
+
+
+def read_storage_full(st: StateBatch, lane: int):
+    """All associative entries: [(key_int, val_int, key_tag, val_tag)].
+
+    A nonzero tag means the corresponding int is a placeholder and the
+    tape node (1-based id, see read_tape) is authoritative. A tagged
+    key's int is NOT zero in general: its low 128 bits carry the key's
+    content-digest stamp (engine.py write_key) — never read it as a key.
+    """
+    used = np.asarray(st.storage_used)[lane]
+    keys = np.asarray(st.storage_key)[lane].reshape(-1, words.NDIGITS)
+    vals = np.asarray(st.storage_val)[lane].reshape(-1, words.NDIGITS)
+    ksym = np.asarray(st.skey_sym)[lane]
+    vsym = np.asarray(st.sval_sym)[lane]
+    return [
+        (words.to_int(keys[j]), words.to_int(vals[j]), int(ksym[j]), int(vsym[j]))
+        for j in range(used.shape[0])
+        if used[j]
+    ]

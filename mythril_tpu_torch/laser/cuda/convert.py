@@ -3,7 +3,10 @@
 The state planes play the part of a model's weights here: the JAX
 package and the port must agree on them byte for byte. This module turns
 numpy dicts of the reference's planes (``StateBatch``, ``CodeBank``,
-``InloopPool``; ``Env`` is empty) into the port's tensors and back.
+``InloopPool``; ``Env`` is empty) into the port's tensors and back, and
+likewise the solver's operands (``lits``/``nvars``/``is_input``/``warm``
+as ``solver_jax._pack_batch`` and ``_warm_plane`` build them) and an
+upload's shipped bytes with their segment spec.
 
 Representation of u32 planes: ``torch.int32`` tensors holding the same
 32 bits (``np.uint32`` is viewed, never converted), because torch's CPU
@@ -103,3 +106,26 @@ def pool_to_torch(planes: dict, device):
 
 def pool_to_numpy(pool) -> dict:
     return {k: to_numpy(v, POOL_DTYPES[k]) for k, v in pool._asdict().items()}
+
+
+SOLVER_DTYPES = (np.int32, np.int32, np.bool_, np.int8)  # lits, nvars, is_input, warm
+
+
+def solver_operands_to_torch(operands, device) -> list:
+    """numpy (lits [I,C,3], nvars [I], is_input [I,V], warm [I,V]) ->
+    tensors for ``solver.solve``."""
+    return [to_tensor(x, dt, device) for x, dt in zip(operands, SOLVER_DTYPES)]
+
+
+def solver_operands_to_numpy(operands) -> list:
+    return [to_numpy(t, dt) for t, dt in zip(operands, SOLVER_DTYPES)]
+
+
+def upload_to_torch(parts, device):
+    """What one upload ships (``transfer.batch_parts``-style ``[(array or
+    None, full shape, dtype)]``) -> (the shipped bytes as one u8 tensor,
+    the segment spec that ``transfer.unpack_plain`` rebuilds planes from)."""
+    from mythril_tpu_torch.laser.cuda import transfer
+
+    segs, shipped = transfer._up_spec(parts)
+    return torch.from_numpy(transfer.serialize_segments(shipped)).to(device), segs

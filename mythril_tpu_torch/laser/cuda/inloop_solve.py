@@ -47,6 +47,23 @@ class InloopPool(NamedTuple):
     lit_used: torch.Tensor  # bool[C, W]
 
 
+def make_pool(var_h1, var_h2, lit_var, lit_neg, lit_used, device="cuda") -> InloopPool:
+    """Assemble a pool on ``device`` from host values (lists or numpy):
+    u32 hashes as int32 tensors with the same bits. The solver cache
+    builds it on the CPU; ``transfer.pool_to_device`` pins it on the card
+    once per super-round."""
+    from mythril_tpu_torch.laser.cuda import convert
+
+    dev = _build.resolve_device(device)
+    return InloopPool(
+        var_h1=convert.to_tensor(var_h1, convert.POOL_DTYPES["var_h1"], dev),
+        var_h2=convert.to_tensor(var_h2, convert.POOL_DTYPES["var_h2"], dev),
+        lit_var=convert.to_tensor(lit_var, convert.POOL_DTYPES["lit_var"], dev),
+        lit_neg=convert.to_tensor(lit_neg, convert.POOL_DTYPES["lit_neg"], dev),
+        lit_used=convert.to_tensor(lit_used, convert.POOL_DTYPES["lit_used"], dev),
+    )
+
+
 def empty_pool(device="cuda") -> InloopPool:
     """The no-clauses pool: R1/R3 still fire, propagation is a no-op."""
     dev = _build.resolve_device(device)

@@ -149,7 +149,7 @@ def keccak256_batch(data: torch.Tensor, length: torch.Tensor, max_blocks: int = 
     if max_blocks is None:
         max_blocks = default_max_blocks(n)
     if data.dtype != torch.uint8:
-        raise TypeError("keccak256_batch wants uint8 data")
+        raise _build.KernelError("keccak256_batch wants uint8 data")
     batch_shape = data.shape[:-1]
     rows = int(np.prod(batch_shape)) if batch_shape else 1
     d = data.reshape(rows, n).contiguous()

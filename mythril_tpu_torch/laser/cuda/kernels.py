@@ -1,4 +1,4 @@
-"""ctypes plumbing shared by the kernel wrappers (K1, K3, K4).
+"""ctypes plumbing shared by the kernel wrappers (K1, K3-K7).
 
 The C side (``csrc/common.cuh``) takes the StateBatch as one ``Planes``
 struct: a pointer and a row size in bytes per plane, in
@@ -41,11 +41,11 @@ class Pool(ctypes.Structure):
 
 def _checked(t: torch.Tensor, name: str, dtype: torch.dtype, dev) -> torch.Tensor:
     if t.device != dev:
-        raise ValueError(f"{name} on {t.device}, expected {dev}")
+        raise _build.KernelError(f"{name} on {t.device}, expected {dev}")
     if t.dtype != dtype:
-        raise TypeError(f"{name} has dtype {t.dtype}, expected {dtype}")
+        raise _build.KernelError(f"{name} has dtype {t.dtype}, expected {dtype}")
     if not t.is_contiguous():
-        raise ValueError(f"{name} is not contiguous")
+        raise _build.KernelError(f"{name} is not contiguous")
     return t
 
 
@@ -59,11 +59,11 @@ def planes(st: StateBatch, n_codes: int, code_len: int) -> Planes:
     for i, name in enumerate(StateBatch._fields):
         t = _checked(getattr(st, name), name, convert.torch_dtype(_DTYPES[name]), dev)
         if t.shape[0] != L:
-            raise ValueError(f"{name} is not lane-major")
+            raise _build.KernelError(f"{name} is not lane-major")
         pl.p[i] = t.data_ptr()
         pl.row_bytes[i] = t[0].numel() * t.element_size() if t.dim() > 1 else t.element_size()
     if st.visited.shape[1] != code_len:
-        raise ValueError("visited width differs from the code bank's code_len")
+        raise _build.KernelError("visited width differs from the code bank's code_len")
     pl.L, pl.S, pl.M, pl.C = L, st.stack.shape[1] // D, st.memory.shape[1], st.calldata.shape[1]
     pl.K, pl.CL, pl.T, pl.P = st.storage_key.shape[1] // D, code_len, st.tape_op.shape[1], st.path_id.shape[1]
     pl.MS, pl.SSR, pl.JD, pl.n_codes = st.msym_off.shape[1], st.ss_pc.shape[1], JD_RING, n_codes
@@ -142,6 +142,9 @@ _SIGS = {
     ("step", "mt_step_lanes"): [_P(Planes), _P(Bank)] + [_V] * 6 + [_I, _I, _V],
     ("inloop", "mt_unsat_mask"): [_P(Planes), _P(Pool), _V, _V, _I, _V],
     ("megakernel", "mt_round_epilogue"): [_P(Planes), _P(Planes)] + [_V] * 7 + [_I, _I, _V],
+    ("solve", "mt_solve"): [_V] * 7 + [_I] * 4 + [ctypes.c_uint32, _V],
+    ("transfer", "mt_unpack"): [_V, _V, _I, ctypes.c_int64, _V],
+    ("transfer", "mt_pack"): [_V, _V, _I, ctypes.c_int64, _V],
 }
 
 
@@ -199,7 +202,7 @@ def launch_unsat(pool, st: StateBatch, ctl=None, out=None) -> torch.Tensor:
     pl = planes(st, 1, st.visited.shape[1])
     ps = pool_struct(pool)
     if ps.V > 256:
-        raise ValueError("unsat_mask kernel takes at most 256 pool variables")
+        raise _build.KernelError("unsat_mask kernel takes at most 256 pool variables")
     rc = _fn("inloop", "mt_unsat_mask")(ctypes.byref(pl), ctypes.byref(ps), _vp(out), _vp(ctl),
                                          NFIELDS, _build.stream(dev))
     _build.check(rc, "unsat_mask", "inloop")
@@ -219,7 +222,7 @@ def launch_epilogue(cb, st, unsat, acc, pv, ctl, max_rounds, scratch) -> None:
     _checked(pv, "pruned_visited", torch.bool, dev)
     _checked(ctl, "ctl", torch.int32, dev)
     if pv.shape != (n_codes, CL) or ctl.numel() != 4 or acc.numel() != 4:
-        raise ValueError("bad pruned_visited / ctl / acc shape")
+        raise _build.KernelError("bad pruned_visited / ctl / acc shape")
     rc = _fn("megakernel", "mt_round_epilogue")(
         ctypes.byref(pl), ctypes.byref(ps), _vp(cb.prune_revert), _vp(unsat), _vp(acc),
         _vp(sc.order), _vp(sc.dying), _vp(pv), _vp(ctl), int(max_rounds), NFIELDS,

@@ -179,5 +179,6 @@ def round_epilogue(cb, s, unsat, acc, pv, ctl, max_rounds, scratch):
 
 def decode_info(info) -> FusedStats:
     """ONE blocking device->host fetch for all fused-round scalars."""
-    vals = info.detach().cpu().tolist()
+    with _build.sync_point():
+        vals = info.detach().cpu().tolist()
     return FusedStats(*(int(v) for v in vals))

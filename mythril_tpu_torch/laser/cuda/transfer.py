@@ -1,0 +1,480 @@
+"""Single-buffer host<->device movement of a StateBatch: K6 and K7.
+
+Replaces ``mythril_tpu/laser/tpu/transfer.py``. Both directions keep
+the reference's byte layout (the ``StateBatch`` field order, raw
+little-endian bytes of each plane, bools as 0/1 bytes), its tape-prefix
+and alive-prefix slicing and its absent-group skipping, so the bytes
+that cross the host link are the reference's:
+
+- up: ``serialize_segments`` writes the shipped planes into one pinned
+  host buffer behind a small segment table, one ``copy_`` takes it to
+  the card, and K6 (``unpack``) writes every plane in full: the shipped
+  prefix of each row, zeros past it, zeros for an absent group, and
+  ``!= 0`` for bools;
+- down: K7 (``pack``) gathers the small planes (``tape_len`` and
+  ``alive`` among them) into one device buffer that comes back in one
+  copy; after the host has read them, a second K7 gathers the bulky
+  planes sliced to the used tape columns and the alive lane prefix.
+
+Kernels (``csrc/transfer.cu``): one launch per direction; ``blockIdx.y``
+picks the plane, the blocks of that row stride over its bytes, in 4-byte
+units where the offsets allow. Bound on the H100: device-memory bytes
+(each plane's bytes read once and written once); the host link is timed
+separately against a plain pinned ``copy_``. On CPU tensors the plain
+twins (``unpack_plain``, ``pack_plain``) do the same with torch views.
+
+The reference compiles one XLA variant per (tape bucket, absent groups)
+pair and pins a single variant on accelerators (``monomorphic``). The
+port's kernels take the prefixes as launch arguments, so there is no
+compile to amortise: ``monomorphic()`` is False on every device unless
+``MYTHRIL_TPU_MONO_TRANSFER=1`` pins the full-size layout.
+"""
+
+import ctypes
+import logging
+import os
+
+import numpy as np
+import torch
+
+from mythril_tpu_torch.laser.cuda import _build, convert, words
+from mythril_tpu_torch.laser.cuda.batch import BatchConfig, StateBatch, batch_shapes
+from mythril_tpu_torch.robustness import faults
+
+log = logging.getLogger(__name__)
+
+unpack_launches = 0  # K6 launches (CUDA path only)
+pack_launches = 0  # K7 launches (CUDA path only)
+
+SEG_COLS = 6  # csrc/transfer.cuh table row width
+
+# planes the host-side consumers never read: rebuilt as zeros on the way
+# down (a downloaded batch is never re-uploaded)
+_SKIP_DOWN = ("tape_h1", "tape_h2")
+
+# row-sliceable planes (the term tapes dominate the batch's bytes)
+_TAPE_PLANES = (
+    "tape_op", "tape_a", "tape_b", "tape_imm", "tape_h1", "tape_h2",
+    "tape_meta",
+)
+_TAPE_BUCKETS = (16, 64, 256, 1024, 4096)
+
+# skippable plane groups for the upload (one presence bit per group)
+_UP_GROUPS = {
+    "symbolic": (
+        "stack_sym", "tape_op", "tape_a", "tape_b", "tape_imm", "tape_h1",
+        "tape_h2", "tape_meta", "tape_len", "path_id", "path_sign",
+        "path_meta", "path_len",
+        "msym_off", "msym_id", "msym_used", "skey_sym", "sval_sym",
+        "calldata_symbolic", "storage_symbolic", "cdsize_sym",
+        "caller_sym", "callvalue_sym", "origin_sym", "balance_sym",
+    ),
+    "memory": ("memory", "mem_words"),
+    "storage": ("storage_key", "storage_val", "storage_used"),
+}
+_GROUP_OF = {
+    plane: group for group, planes in _UP_GROUPS.items() for plane in planes
+}
+
+# bulky planes deferred to the second (sized) fetch
+_BIG_DOWN = (
+    "stack",
+    "stack_sym",
+    "memory",
+    "visited",
+    "calldata",
+    "storage_key",
+    "storage_val",
+    "tape_op",
+    "tape_a",
+    "tape_b",
+    "tape_imm",
+    "tape_meta",
+)
+
+# the reference's numpy dtype of every plane (dtypes do not depend on sizes)
+_NP_DTYPES = {k: np.dtype(dt) for k, (_s, dt) in batch_shapes(BatchConfig()).items()}
+
+
+def monomorphic() -> bool:
+    """Full-size planes in both directions (no tape or lane slicing, no
+    group skipping). Off on every device: the kernels take the prefixes
+    as arguments, so the bytes the slicing saves come free.
+    ``MYTHRIL_TPU_MONO_TRANSFER=1|0`` overrides, as in the reference."""
+    return os.environ.get("MYTHRIL_TPU_MONO_TRANSFER") == "1"
+
+
+# tape_imm is carried FLAT ([L, T*NDIGITS]); its per-row column count
+# scales accordingly when slicing/padding the used-row prefix
+def _tape_cols(name: str, rows: int) -> int:
+    return rows * words.NDIGITS if name == "tape_imm" else rows
+
+
+def _bucket(n: int, cap: int) -> int:
+    for b in _TAPE_BUCKETS:
+        if n <= b and b <= cap:
+            return b
+    return cap
+
+
+def _lane_bucket(n: int, cap: int) -> int:
+    """Smallest power-of-two lane count covering ``n`` (min 16, max
+    ``cap``)."""
+    b = 16
+    while b < n:
+        b <<= 1
+    return min(b, cap)
+
+
+def serialize_segments(arrays) -> np.ndarray:
+    """Host side: raw little-endian bytes of ``arrays``, concatenated."""
+    if not arrays:
+        return np.zeros(0, np.uint8)
+    return np.concatenate(
+        [np.ascontiguousarray(a).view(np.uint8).ravel() for a in arrays]
+    )
+
+
+# -- K6: unpack ----------------------------------------------------------
+
+
+class UpSeg:
+    """One plane of an upload: its full shape and dtype, and the bytes
+    per row shipped (``ship``; None = the plane is absent, all zeros)."""
+
+    __slots__ = ("shape", "dtype", "ship", "src_off")
+
+    def __init__(self, shape, dtype, ship, src_off):
+        self.shape = tuple(shape)
+        self.dtype = np.dtype(dtype)
+        self.ship = ship
+        self.src_off = src_off
+
+    @property
+    def rows(self) -> int:
+        return self.shape[0] if self.shape else 1
+
+    @property
+    def full(self) -> int:
+        n = int(np.prod(self.shape)) if self.shape else 1
+        return n // self.rows * self.dtype.itemsize
+
+
+def _up_spec(arrays_full_shapes):
+    """[(array or None, full shape, dtype)] -> (segments, shipped arrays):
+    shipped arrays are laid out back to back in their order."""
+    segs, shipped, off = [], [], 0
+    for arr, shape, dtype in arrays_full_shapes:
+        if arr is None:
+            segs.append(UpSeg(shape, dtype, None, -1))
+            continue
+        arr = np.ascontiguousarray(arr)
+        rows = shape[0] if len(shape) else 1
+        ship = arr.nbytes // rows if rows else 0
+        segs.append(UpSeg(shape, dtype, ship, off))
+        shipped.append(arr)
+        off += arr.nbytes
+    return segs, shipped
+
+
+def unpack_plain(buf: torch.Tensor, segs) -> list:
+    """Twin of K6: planes from the shipped bytes in ``buf`` (u8, any
+    device). Each row gets its shipped prefix then zeros; bools ``!= 0``."""
+    out = []
+    for s in segs:
+        tdt = convert.torch_dtype(s.dtype)
+        full = torch.zeros((s.rows, s.full), dtype=torch.uint8, device=buf.device)
+        if s.ship:
+            seg = buf[s.src_off: s.src_off + s.rows * s.ship].view(s.rows, s.ship)
+            full[:, : s.ship] = seg
+        if s.dtype == np.bool_:
+            plane = (full != 0).reshape(s.shape)
+        else:
+            plane = full.view(tdt).reshape(s.shape)
+        out.append(plane)
+    return out
+
+
+def _launch(fn_name: str, data: int, table: int, nseg: int, max_bytes: int, dev) -> None:
+    """One K6 (``mt_unpack``) or K7 (``mt_pack``) launch on the current
+    stream; ``data`` is the buffer read (K6) or written (K7), ``table``
+    the device address of the segment table."""
+    from mythril_tpu_torch.laser.cuda import kernels
+
+    rc = kernels._fn("transfer", fn_name)(
+        ctypes.c_void_p(data), ctypes.c_void_p(table), nseg, max_bytes, _build.stream(dev)
+    )
+    _build.check(rc, fn_name, "transfer")
+
+
+def _up_table(segs, planes) -> np.ndarray:
+    """K6's table: [src_off, dst_ptr, rows, ship, full, flags] per plane."""
+    tab = np.zeros((len(segs), SEG_COLS), np.int64)
+    for i, (s, t) in enumerate(zip(segs, planes)):
+        tab[i] = (s.src_off if s.ship else -1, t.data_ptr(), s.rows, s.ship or 0, s.full,
+                  1 if s.dtype == np.bool_ else 0)
+    return tab
+
+
+class Staged:
+    """An upload on the card before K6: the device buffer (segment table
+    then the shipped bytes), its segments and the planes K6 will fill."""
+
+    __slots__ = ("buf", "header", "segs", "planes")
+
+    def __init__(self, buf, header, segs, planes):
+        self.buf, self.header, self.segs, self.planes = buf, header, segs, planes
+
+
+def stage(arrays_full_shapes, dev) -> Staged:
+    """Serialize into one pinned host buffer and start its one copy to
+    the card. The planes exist before the table is written: the table
+    holds their device pointers and rides in the same buffer."""
+    segs, shipped = _up_spec(arrays_full_shapes)
+    planes = [
+        torch.empty(s.shape, dtype=convert.torch_dtype(s.dtype), device=dev) for s in segs
+    ]
+    header = len(segs) * SEG_COLS * 8
+    nbytes = header + sum(a.nbytes for a in shipped)
+    host = torch.empty(nbytes, dtype=torch.uint8, pin_memory=True)
+    hv = host.numpy()
+    hv[:header] = _up_table(segs, planes).view(np.uint8).ravel()
+    off = header
+    for a in shipped:
+        hv[off: off + a.nbytes] = a.view(np.uint8).ravel()
+        off += a.nbytes
+    buf = torch.empty(nbytes, dtype=torch.uint8, device=dev)
+    buf.copy_(host, non_blocking=True)
+    return Staged(buf, header, segs, planes)
+
+
+def unpack(staged: Staged) -> list:
+    """K6: write every plane of a staged upload in full."""
+    if staged.segs:
+        global unpack_launches
+        unpack_launches += 1
+        base = staged.buf.data_ptr()
+        _launch("mt_unpack", base + staged.header, base, len(staged.segs),
+                max(s.rows * s.full for s in staged.segs), staged.buf.device)
+    return staged.planes
+
+
+def upload(arrays_full_shapes, device="cuda") -> list:
+    """One host->device copy plus one K6 launch: ``[(array or None, full
+    shape, dtype)]`` -> full-size device planes. An array narrower than
+    its full shape (a tape prefix) ships only its rows' prefix."""
+    dev = _build.resolve_device(device)
+    if dev.type == "cpu":
+        segs, shipped = _up_spec(arrays_full_shapes)
+        return unpack_plain(torch.from_numpy(serialize_segments(shipped)), segs)
+    return unpack(stage(arrays_full_shapes, dev))
+
+
+def upload_segments(arrays, device="cuda"):
+    """One-buffer upload of arbitrary host arrays; returns the device
+    tensors (u32 arrays as int32 tensors with the same bits)."""
+    return upload([(a, a.shape, a.dtype) for a in arrays], device)
+
+
+def pool_to_device(pool, device="cuda"):
+    """Pin the in-loop CNF pool (inloop_solve.InloopPool, host tensors)
+    on the card once per super-round, through the same one-copy path."""
+    from mythril_tpu_torch.laser.cuda.inloop_solve import InloopPool
+
+    faults.fire(faults.TRANSFER_UP, context="pool_to_device")
+    dev = _build.resolve_device(device)
+    if all(t.device.type == dev.type for t in pool):
+        return pool
+    arrays = [
+        convert.to_numpy(getattr(pool, f), convert.POOL_DTYPES[f]) for f in InloopPool._fields
+    ]
+    return InloopPool(*upload_segments(arrays, dev))
+
+
+def batch_parts(np_batch: dict, cfg) -> list:
+    """What ``batch_to_device`` ships: ``[(array or None, full shape,
+    dtype)]`` in field order. Plane groups with no content are absent
+    (rebuilt as zeros on the card) and the term-tape planes keep only
+    their used row prefix."""
+    shapes = batch_shapes(cfg)
+    if monomorphic():
+        t_used = cfg.tape_slots
+        absent = ()
+    else:
+        t_used = _bucket(int(np_batch["tape_len"].max()), cfg.tape_slots)
+        absent = tuple(
+            sorted(
+                group
+                for group, planes in _UP_GROUPS.items()
+                if not any(np_batch[p].any() for p in planes)
+            )
+        )
+    parts = []
+    for name, (shape, dtype) in shapes.items():
+        if _GROUP_OF.get(name) in absent:
+            parts.append((None, shape, dtype))
+            continue
+        arr = np_batch[name]
+        if name in _TAPE_PLANES:
+            arr = arr[:, : _tape_cols(name, t_used)]
+        parts.append((arr, shape, dtype))
+    return parts
+
+
+def batch_to_device(np_batch: dict, cfg, device="cuda") -> StateBatch:
+    """Host plane dict -> device StateBatch via one upload (a freshly
+    packed batch is mostly zeros, so the payload is typically a few
+    hundred KB instead of the full batch)."""
+    faults.fire(faults.TRANSFER_UP, context="batch_to_device")
+    return StateBatch(*upload(batch_parts(np_batch, cfg), device))
+
+
+# -- K7: pack ------------------------------------------------------------
+
+
+def _down_cut(x: torch.Tensor, name: str, t_used, l_used):
+    """(rows, shipped bytes per row, source row stride in bytes)."""
+    rows = x.shape[0] if l_used is None else l_used
+    row_elems = x[0].numel() if x.dim() > 1 else 1
+    ship_elems = row_elems
+    if t_used is not None and name in _TAPE_PLANES:
+        ship_elems = _tape_cols(name, t_used) * (row_elems // x.shape[1])
+    isz = x.element_size()
+    return rows, ship_elems * isz, row_elems * isz
+
+
+def pack_plain(st: StateBatch, fields, t_used=None, l_used=None) -> torch.Tensor:
+    """Twin of K7: the named planes, sliced, as one u8 tensor."""
+    parts = []
+    for name in fields:
+        x = getattr(st, name)
+        if t_used is not None and name in _TAPE_PLANES:
+            x = x[:, : _tape_cols(name, t_used)]
+        if l_used is not None:
+            x = x[:l_used]
+        x = x.contiguous()
+        parts.append(x.view(torch.uint8).reshape(-1) if x.dtype != torch.bool
+                     else x.to(torch.uint8).reshape(-1))
+    if not parts:
+        return torch.zeros(0, dtype=torch.uint8, device=st.alive.device)
+    return torch.cat(parts)
+
+
+def pack(st: StateBatch, fields, t_used=None, l_used=None) -> torch.Tensor:
+    """K7 on a card batch (the twin on a CPU batch)."""
+    dev = st.alive.device
+    if dev.type == "cpu":
+        return pack_plain(st, fields, t_used, l_used)
+    tab = np.zeros((len(fields), SEG_COLS), np.int64)
+    off = 0
+    max_bytes = 0
+    for i, name in enumerate(fields):
+        x = getattr(st, name)
+        if not x.is_contiguous():
+            raise _build.KernelError(f"pack: plane {name} is not contiguous")
+        rows, ship, srow = _down_cut(x, name, t_used, l_used)
+        tab[i] = (x.data_ptr(), off, rows, ship, srow, 0)
+        off += rows * ship
+        max_bytes = max(max_bytes, rows * ship)
+    out = torch.empty(off, dtype=torch.uint8, device=dev)
+    if not fields or off == 0:
+        return out
+    table = torch.from_numpy(tab).pin_memory().to(dev, non_blocking=True)
+    global pack_launches
+    pack_launches += 1
+    _launch("mt_pack", out.data_ptr(), table.data_ptr(), len(fields), max_bytes, dev)
+    return out
+
+
+def _fetch(buf: torch.Tensor) -> np.ndarray:
+    """Device u8 buffer -> host numpy, through one pinned copy."""
+    if buf.device.type == "cpu":
+        return buf.numpy()
+    host = torch.empty(buf.numel(), dtype=torch.uint8, pin_memory=True)
+    with _build.sync_point():
+        host.copy_(buf, non_blocking=True)
+        torch.cuda.current_stream(buf.device).synchronize()
+    return host.numpy()
+
+
+def _unpack_host(buf: np.ndarray, shapes) -> dict:
+    planes = {}
+    off = 0
+    for name, shape, dtype in shapes:
+        nbytes = int(np.prod(shape)) * dtype.itemsize
+        planes[name] = buf[off : off + nbytes].view(dtype).reshape(shape)
+        off += nbytes
+    return planes
+
+
+def down_plan(tape_len: np.ndarray, alive: np.ndarray, cap: int):
+    """(t_used, l_used) of the second fetch from the first one's planes:
+    the tape bucket over the observed maximum, and a lane bucket when
+    compaction left the alive lanes as a dense prefix (None = all)."""
+    L = int(alive.shape[0])
+    if monomorphic():
+        return cap, None
+    t_used = _bucket(int(tape_len.max()), cap)
+    n_alive = int(alive.sum())
+    if n_alive < L and not alive[n_alive:].any():
+        lb = _lane_bucket(n_alive, L)
+        if lb < L:
+            return t_used, lb
+    return t_used, None
+
+
+def batch_to_host(st: StateBatch, n_shards: int = 1) -> StateBatch:
+    """Device StateBatch -> StateBatch of numpy planes (the reference's
+    dtypes) in two downloads.
+
+    Fetch 1 moves the small bookkeeping planes (including ``tape_len``);
+    fetch 2 moves the bulky planes with the term-tape rows sliced to the
+    observed maximum and, when compaction left the alive lanes as a dense
+    prefix, only a power-of-two lane bucket over that prefix."""
+    faults.fire(faults.TRANSFER_DOWN, context="batch_to_host")
+    if n_shards > 1:
+        raise NotImplementedError(
+            "per-shard download buckets belong to the multi-GPU mesh "
+            "(B11, ROADMAP.md queue A item 12), not ported yet"
+        )
+    small = tuple(
+        f
+        for f in StateBatch._fields
+        if f not in _SKIP_DOWN and f not in _BIG_DOWN
+    )
+    small_shapes = [(f, tuple(getattr(st, f).shape), _NP_DTYPES[f]) for f in small]
+    planes = _unpack_host(_fetch(pack(st, small)), small_shapes)
+
+    cap = int(st.tape_op.shape[1])
+    L = int(st.alive.shape[0])
+    t_used, l_used = down_plan(planes["tape_len"], planes["alive"], cap)
+    big_shapes = []
+    for f in _BIG_DOWN:
+        shape = tuple(getattr(st, f).shape)
+        if f in _TAPE_PLANES:
+            shape = (shape[0], _tape_cols(f, t_used)) + shape[2:]
+        if l_used is not None:
+            shape = (l_used,) + shape[1:]
+        big_shapes.append((f, shape, _NP_DTYPES[f]))
+    planes.update(_unpack_host(_fetch(pack(st, _BIG_DOWN, t_used, l_used)), big_shapes))
+    # pad sliced tape planes back to capacity (rows at or past tape_len
+    # are dead by invariant, so zeros are equivalent)
+    for f in _TAPE_PLANES:
+        if f in planes and planes[f].shape[1] != _tape_cols(f, cap):
+            full = np.zeros(
+                (planes[f].shape[0], _tape_cols(f, cap)) + planes[f].shape[2:],
+                planes[f].dtype,
+            )
+            full[:, : planes[f].shape[1]] = planes[f]
+            planes[f] = full
+    # pad lane-sliced planes back to full height (dead-suffix lanes are
+    # equivalent to zeros for every host consumer)
+    if l_used is not None:
+        for f in _BIG_DOWN:
+            if planes[f].shape[0] != L:
+                full = np.zeros((L,) + planes[f].shape[1:], planes[f].dtype)
+                full[: planes[f].shape[0]] = planes[f]
+                planes[f] = full
+    for name in _SKIP_DOWN:
+        planes[name] = np.zeros(tuple(getattr(st, name).shape), _NP_DTYPES[name])
+    return StateBatch(**planes)

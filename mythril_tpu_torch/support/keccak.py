@@ -1,9 +1,15 @@
 """Keccak-256 (Ethereum flavor, pre-NIST padding 0x01).
 
-Host reference for the batched device kernel
-(mythril_tpu_torch/laser/cuda/keccak.py). This copy keeps only the pure
-Python path; the native ctypes path arrives with the host glue.
+Replaces the reference's `_pysha3` C extension (mythril/support/support_utils.py:4)
+and `ethereum.utils.sha3` (keccak_function_manager.py:49). Three engines:
+
+- native C++ (mythril_tpu_torch/csrc/native.cpp, loaded via ctypes) — default host path
+- pure Python fallback (below)
+- the batched device kernel K2 for hashing many inputs on the card
+  (mythril_tpu_torch/laser/cuda/keccak.py)
 """
+
+from typing import Optional
 
 _RC = [
     0x0000000000000001, 0x0000000000008082, 0x800000000000808A, 0x8000000080008000,
@@ -74,8 +80,41 @@ def _keccak256_py(data: bytes) -> bytes:
     return bytes(out)
 
 
+_native_keccak: Optional[object] = None
+_native_checked = False
+
+
+def _get_native():
+    global _native_keccak, _native_checked
+    if not _native_checked:
+        _native_checked = True
+        try:
+            from mythril_tpu_torch.support.native_build import load_native_lib
+            import ctypes
+
+            lib = load_native_lib()
+            if lib is not None:
+                lib.mtpu_keccak256.argtypes = [
+                    ctypes.c_char_p,
+                    ctypes.c_size_t,
+                    ctypes.c_char_p,
+                ]
+                lib.mtpu_keccak256.restype = None
+                _native_keccak = lib.mtpu_keccak256
+        except Exception:
+            _native_keccak = None
+    return _native_keccak
+
+
 def keccak256(data: bytes) -> bytes:
-    """keccak256 of a byte string (pure-Python path)."""
+    """keccak256 of a byte string."""
     if isinstance(data, str):
         data = data.encode()
+    fn = _get_native()
+    if fn is not None:
+        import ctypes
+
+        out = ctypes.create_string_buffer(32)
+        fn(bytes(data), len(data), out)
+        return out.raw
     return _keccak256_py(bytes(data))

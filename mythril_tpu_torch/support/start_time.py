@@ -1,0 +1,13 @@
+"""Analysis start-time singleton (reference surface:
+mythril/support/start_time.py)."""
+
+import time
+
+from mythril_tpu_torch.support.support_utils import Singleton
+
+
+class StartTime(object, metaclass=Singleton):
+    """Remembers the start time of the current analysis."""
+
+    def __init__(self):
+        self.global_start_time = time.time()
