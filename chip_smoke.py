@@ -51,9 +51,23 @@ phases that each print one JSON line:
    subprocess from just before the CLI starts);
 11. BECToken (3 tx, 120 s) with MYTHRIL_TPU_FUSED=off: the sync slice
    loop must run device slices, report [101@28, 101@104] and degrade no
-   round; then the times of K8 and K9.
+   round; then the times of K8 and K9;
+12. the mesh tiers, 8 lane shards of the one card (64 lanes each):
+   K10 (steal plan, counts), K11 (lane moves) and K12 (deal) against
+   their twins on tagged batches, K1 and K4 with the shard count,
+   run_fused_mesh (4 rounds x 256 steps, every seed in shard 0, under
+   sync debug mode "error") on becstress (stats on) and BECToken, and
+   one sharded_round with the deal, each against the twin's run; the
+   skew demos (MULTICHIP_r06's 64 lanes with 16 spinning on shards 0-1:
+   one steal of 12 lanes, occupancy [2]*8, 4096 steps; and 512 lanes
+   with 128 spinning: 96 lanes, [16]*8), held against the twin too;
+   BECToken (3 tx, 120 s) through SymExecWrapper over the mesh
+   (MYTHRIL_TPU_MESH=on; the strategy warms itself inside the run, as
+   in the e2e phases): [101@28, 101@104], fused mesh rounds, no
+   degraded round; then the times of K10-K12 and of the
+   mesh super-round beside run_fused on the same seed.
 
-The last three lines are the kernels JSON (K1-K9), the card's name and
+The last three lines are the kernels JSON (K1-K12), the card's name and
 power limit, and {"ok": true, "device": {...}}. Any mismatch or
 exception exits non-zero without that last line. Imports nothing of JAX.
 """
@@ -178,6 +192,12 @@ def main():
     entries = run(dev, batch.DEFAULT_BATCH_CFG, smi)
     entries += run_host_half(dev, batch.DEFAULT_BATCH_CFG, smi)
     entries += run_stats_and_sync(dev, batch.DEFAULT_BATCH_CFG, smi)
+    mesh_entries, seg_err = run_mesh(dev, batch.DEFAULT_BATCH_CFG, smi)
+    for e in entries:  # K1 and K4 also ran with a shard count
+        kid = e["name"].split()[0]
+        if kid in seg_err:
+            e["max_abs_err"] = max(e["max_abs_err"], seg_err[kid])
+    entries += mesh_entries
     emit({"kernels": entries})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -1316,6 +1336,497 @@ def run_stats_and_sync(dev, cfg, smi, cli_budget=60, sync_budget=("bectoken", 3,
         entry("K9", "K9 slice_ctl", "mythril_tpu_torch/csrc/slice.cu",
               "mythril_tpu/laser/tpu/engine.py:1415", sync_launches["K9"], ms9, plain9, bytes9, by_path9),
     ]
+
+
+LOOP_SRC = "here:\nJUMPDEST\nPUSH1 :here\nJUMP"
+
+
+def run_mesh(dev, cfg, smi, rounds=4, steps_per_round=256, n_shards=8, e2e=("bectoken", 3, 120)):
+    """Phase 12, the mesh tiers on one card (n_shards lane blocks of one
+    batch): K10-K12 and the segmented K1/K4 against their twins, the
+    fused mesh super-round and one sync mesh round against the twins'
+    runs, the skew demos, BECToken through SymExecWrapper over the mesh,
+    and the times. Returns the kernels line's entries for K10-K12 and the
+    segmented K1/K4 errors."""
+    import numpy as np
+    import torch
+
+    from mythril_tpu_torch.disassembler.asm import assemble
+    from mythril_tpu_torch.laser.cuda import batch, engine, inloop_solve, kernels, megakernel, mesh
+
+    on_card = dev.type == "cuda"
+    L, n = cfg.lanes, n_shards
+    per = L // n
+
+    def sync():
+        if on_card:
+            torch.cuda.synchronize()
+
+    def diff(a, b):
+        if torch.equal(a, b):
+            return 0
+        return max(1, int((a.to(torch.int64) - b.to(torch.int64)).abs().max()))
+
+    def batch_diff(a, b):
+        for name, x, y in zip(batch.StateBatch._fields, a, b):
+            if not torch.equal(x, y):
+                idx = (x != y).nonzero()[0].tolist()
+                return diff(x, y), f"{name}{idx}: kernel={x[tuple(idx)].item()} twin={y[tuple(idx)].item()}"
+        return 0, None
+
+    def clone(st):
+        return batch.StateBatch(*(x.clone() for x in st))
+
+    zero_counts, read_counts = mesh_counters()
+    max_err = {"K1": 0, "K4": 0, "K10": 0, "K11": 0, "K12": 0}
+    rng = np.random.default_rng(20261019)
+    sym = dict(symbolic_calldata=True, symbolic_storage=True, symbolic_caller=True, symbolic_callvalue=True)
+    contracts = {
+        "becstress": assemble(STRESS_SRC),
+        "bectoken": assemble(open(os.path.join(HERE, "bench_contracts", "bectoken.asm")).read()),
+    }
+
+    def bank_for(code):
+        return batch.make_code_bank([code], cfg.code_len, host_ops=ALWAYS_HOST, freeze_errors=True,
+                                    record_storage_events=True, prune_revert=True, device=dev)
+
+    def seeds(n_sym, n_conc):
+        specs = [dict(sym) for _ in range(n_sym)]
+        for i in range(n_conc):
+            cd = int(rng.integers(1, 2**31)).to_bytes(32, "big") + int(rng.integers(0, 6)).to_bytes(32, "big")
+            specs.append(dict(calldata=cd + bytes(rng.integers(0, 256, 64, dtype=np.uint8)), caller=0x1000 + i))
+        return specs
+
+    def tagged(running_blocks, halted=0):
+        """A batch at cfg whose rows carry their lane index, with
+        ``running_blocks[s]`` running lanes (then ``halted`` halted ones)
+        as a dense prefix of shard s."""
+        st = batch.empty_batch(cfg, device=dev)
+        alive = torch.zeros(L, dtype=torch.bool, device=dev)
+        status = torch.full((L,), batch.STOPPED, dtype=torch.int32, device=dev)
+        for s, c in enumerate(running_blocks):
+            alive[s * per: s * per + c + halted] = True
+            status[s * per: s * per + c] = batch.RUNNING
+        lane = torch.arange(L, dtype=torch.int32, device=dev)
+        stack = st.stack.clone()
+        stack[:, 0] = lane
+        visited = torch.zeros_like(st.visited)
+        visited[torch.arange(L, device=dev), lane.long() % cfg.code_len] = True
+        return st._replace(alive=alive, status=status, pc=lane + 100, steps=lane + 1000, gas_left=lane + 5000,
+                           static_pruned=torch.full_like(lane, 7), stack=stack, visited=visited)
+
+    # ---- 12a. K10, K11, K12 alone; K1 and K4 with a shard count ------------
+    skew = [per, per] + [0] * (n - 2)  # shards 0-1 full of running lanes
+    cases = {"skew": tagged(skew), "capacity": tagged([per // 2, per // 2] + [0] * (n - 2), halted=per // 2),
+             "ragged": tagged([int(rng.integers(0, per)) for _ in range(n)], halted=1)}
+    for name, st in cases.items():
+        pk, pt = mesh.steal_plan(st, n, device=dev), mesh.steal_plan_plain(st, n)
+        err10 = max(diff(a, b) for a, b in zip(pk, pt))
+        occ_k = mesh.occupancy_impl(st, n, device=dev)
+        err10 = max(err10, diff(occ_k, mesh.occupancy_impl_plain(st, n)))
+        ak, at = mesh.steal_apply(st, pk, n, device=dev), mesh.steal_apply_plain(st, pt, n)
+        err11, where11 = batch_diff(ak, at)
+        dk, dt = mesh.rebalance(st, n, device=dev), mesh.rebalance_plain(st, n)
+        err12, where12 = batch_diff(dk, dt)
+        max_err["K10"] = max(max_err["K10"], err10)
+        max_err["K11"] = max(max_err["K11"], err11)
+        max_err["K12"] = max(max_err["K12"], err12)
+        emit({"phase": "compare", "kernel": "K10/K11/K12", "case": name, "lanes": L, "shards": n,
+              "occ": pt.occ.tolist(), "moved": int(pt.moved), "filled": pt.filled.tolist(),
+              "err": [err10, err11, err12], "ok": not (err10 or err11 or err12)})
+        if err10 or err11 or err12:
+            raise AssertionError(f"mesh kernels differ from their twins on {name}: plan {err10}, "
+                                 f"steal {where11}, deal {where12}")
+    steal_state = cases["skew"]
+
+    cb_t = bank_for(contracts["bectoken"])
+    st_k = st_t = batch.build_batch(cfg, seeds(per // 4, per // 4), device=dev)
+    for i in range(64):  # every seed in shard 0: its forks fill it, then trap
+        st_k = engine.step(cb_t, None, st_k, device=dev, n_shards=n)
+        st_t = engine.step_plain(cb_t, st_t, n)
+        err, where = batch_diff(st_k, st_t)
+        max_err["K1"] = max(max_err["K1"], err)
+        if err:
+            raise AssertionError(f"K1 (n_shards={n}) differs from the twin at step {i}: {where}")
+    traps = int(((st_t.status == batch.TRAP) & (st_t.trap_op == 0x57)).sum())
+    emit({"phase": "compare", "kernel": "K1 sharded", "contract": "bectoken", "steps": 64, "shards": n,
+          "alive": int(st_t.alive.sum()), "jumpi_traps": traps, "ok": True})
+    unsat = (torch.as_tensor(rng.random(L) < 0.1, device=dev) & st_t.alive)
+    acc_t = torch.zeros(4, dtype=torch.int32, device=dev)
+    pv_t = torch.zeros(cb_t.code.shape, dtype=torch.bool, device=dev)
+    out_t = megakernel.round_epilogue_plain(cb_t, st_t, unsat, acc_t, pv_t, n)
+    st4 = clone(st_t)
+    acc_k, pv_k = torch.zeros_like(acc_t), torch.zeros_like(pv_t)
+    ctl = torch.tensor([0, 1, 0, 0], dtype=torch.int32, device=dev)
+    if on_card:
+        megakernel.round_epilogue(cb_t, st4, unsat, acc_k, pv_k, ctl, 16, batch.StateBatch(
+            *(torch.empty_like(x) for x in st4)), n)
+    else:
+        st4 = megakernel.round_epilogue_plain(cb_t, st4, unsat, acc_k, pv_k, n)
+    err, where = batch_diff(st4, out_t)
+    err = max(err, diff(acc_k, acc_t), diff(pv_k, pv_t))
+    max_err["K4"] = max(max_err["K4"], err)
+    emit({"phase": "compare", "kernel": "K4 sharded", "shards": n, "acc": acc_t.tolist(), "ok": not err})
+    if err:
+        raise AssertionError(f"K4 (n_shards={n}) differs from the twin: {where}")
+
+    # ---- 12b. the fused mesh super-round against the twin's -----------------
+    m = mesh.make_mesh(n, device=dev)
+    pool0 = inloop_solve.empty_pool(dev)
+    n_seeds = min(16, per)
+    results = {}
+    for name in ("becstress", "bectoken"):
+        cb = bank_for(contracts[name])
+        st = batch.build_batch(cfg, [dict(sym) for _ in range(n_seeds // 2)] + seeds(0, n_seeds // 2),
+                               device=dev)  # all in shard 0
+        with_stats = name == "becstress"
+        sync()
+        zero_counts()
+        t0 = time.perf_counter()
+        if on_card:
+            torch.cuda.set_sync_debug_mode("error")
+        try:
+            out = megakernel.run_fused_mesh(m, cb, None, st, max_rounds=rounds, steps_per_round=steps_per_round,
+                                            with_stats=with_stats, with_solve=True, pool=pool0)
+        finally:
+            if on_card:
+                torch.cuda.set_sync_debug_mode("default")
+        t_enq = time.perf_counter()
+        stats = megakernel.decode_mesh_info(out.info, n)
+        wall = (time.perf_counter() - t0) * 1e3
+        counts = read_counts()
+        ot = megakernel.run_fused_mesh_plain(cb, st, n, rounds, steps_per_round, True, pool0, with_stats)
+        err, where = batch_diff(out.st, ot.st)
+        ok = (not err and torch.equal(out.info, ot.info) and torch.equal(out.pruned_visited, ot.pruned_visited)
+              and torch.equal(out.hist, ot.hist))
+        max_err["K1"] = max(max_err["K1"], err)
+        results[name] = (cb, st, stats, counts)
+        emit({"phase": "mesh_vs_twin", "contract": name, "shards": n, "with_stats": with_stats,
+              "info": stats._asdict(), "retired": int(out.st.steps.sum()) + stats.pruned_steps,
+              "wall_ms": round(wall, 3), "enqueue_ms": round((t_enq - t0) * 1e3, 3), "launches": counts,
+              "ok": bool(ok)})
+        if not ok:
+            raise AssertionError(f"{name}: the fused mesh super-round differs from the twin: {where} "
+                                 f"info {out.info.tolist()} vs {ot.info.tolist()}")
+        if on_card and min(counts[k] for k in ("K1", "K2", "K3", "K4", "K10", "K11")) <= 0:
+            raise AssertionError(f"{name}: a kernel of the fused mesh loop never launched: {counts}")
+    fused_mesh_counts = {k: sum(r[3][k] for r in results.values()) for k in read_counts()}
+
+    # ---- 12c. one sync mesh round (the deal) against the twin's --------------
+    cb_r, st_r = results["bectoken"][0], results["bectoken"][1]
+    sync()
+    zero_counts()
+    out_k, occ_k = mesh.sharded_round(cb_r, None, st_r, steps_per_round=steps_per_round, do_rebalance=True,
+                                      n_shards=n, device=dev)
+    sync()
+    sync_counts = read_counts()
+    out_t, occ_t = mesh.round_impl_plain(cb_r, st_r, steps_per_round, True, n)
+    err, where = batch_diff(out_k, out_t)
+    err = max(err, diff(occ_k, occ_t))
+    max_err["K12"] = max(max_err["K12"], err)
+    emit({"phase": "mesh_sync_vs_twin", "contract": "bectoken", "steps": steps_per_round, "occ": occ_t.tolist(),
+          "launches": sync_counts, "ok": not err})
+    if err:
+        raise AssertionError(f"sharded_round differs from the twin: {where}")
+    if on_card and min(sync_counts[k] for k in ("K1", "K9", "K10", "K12")) <= 0:
+        raise AssertionError(f"a kernel of the sync mesh round never launched: {sync_counts}")
+
+    # ---- 12d. the skew demos ------------------------------------------------
+    loop_code = assemble(LOOP_SRC)
+    demos = {}
+    for lanes_, spinning in ((64, 16), (L, L // 4)):
+        cfg_d = cfg._replace(lanes=lanes_)
+        cb_d = batch.make_code_bank([loop_code], cfg.code_len, device=dev)
+        st_d = batch.build_batch(cfg_d, [dict(calldata=b"", gas=10_000_000)] * spinning, device=dev)
+        before = read_counts()
+        out_d = megakernel.run_fused_mesh(mesh.make_mesh(n, device=dev), cb_d, None, st_d, max_rounds=4,
+                                          steps_per_round=64, with_solve=True, pool=pool0)
+        stats = megakernel.decode_mesh_info(out_d.info, n)
+        steps = int(out_d.st.steps.sum())
+        ot = megakernel.run_fused_mesh_plain(cb_d, st_d, n, 4, 64, True, pool0)
+        err, where = batch_diff(out_d.st, ot.st)
+        err = max(err, diff(out_d.info, ot.info))
+        max_err["K11"] = max(max_err["K11"], err)
+        if err:
+            raise AssertionError(f"skew demo at {lanes_} lanes differs from the twin: {where}")
+        want_occ = [spinning // n] * n
+        want_moved = spinning - 2 * (spinning // n)
+        demos[lanes_] = {"spinning": spinning, "steal_events": stats.steal_events,
+                         "steal_lanes": stats.steal_lanes, "occupancy": list(stats.occupancy),
+                         "spread": max(stats.occupancy) - min(stats.occupancy), "steps": steps,
+                         "steps_expected": spinning * 4 * 64,
+                         "k11_launches": read_counts()["K11"] - before["K11"]}
+        emit({"phase": "mesh_skew_demo", "lanes": lanes_, "shards": n, **demos[lanes_]})
+        if (stats.steal_events != 1 or stats.steal_lanes != want_moved or list(stats.occupancy) != want_occ
+                or steps != spinning * 4 * 64):
+            raise AssertionError(f"skew demo at {lanes_} lanes: {demos[lanes_]}, expected 1 steal of "
+                                 f"{want_moved} lanes, occupancy {want_occ}")
+
+    # ---- 12e. the whole analysis over the mesh -------------------------------
+    e2e_counts = run_mesh_e2e(dev, cfg, smi, n, e2e)
+
+    # ---- 12f. times ------------------------------------------------------------
+    def time_ms(fn, prep=None, reps=20):
+        """Mean device time of fn over reps (CUDA events), inputs rebuilt
+        by ``prep`` outside the timed region; host time on the CPU (not
+        kept)."""
+        fn(prep() if prep else None)
+        sync()
+        total = 0.0
+        reps = reps if on_card else 1
+        for _ in range(reps):
+            a = prep() if prep else None
+            sync()
+            if on_card:
+                e0 = torch.cuda.Event(enable_timing=True)
+                e1 = torch.cuda.Event(enable_timing=True)
+                e0.record()
+                fn(a)
+                e1.record()
+                torch.cuda.synchronize()
+                total += e0.elapsed_time(e1)
+            else:
+                t = time.perf_counter()
+                fn(a)
+                total += (time.perf_counter() - t) * 1e3
+        return total / reps
+
+    def row_bytes(st):
+        return sum(x[0].numel() * x.element_size() for x in st)
+
+    ss = steal_state
+    margs = kernels.MeshArgs(ss, n) if on_card else None
+    if on_card:
+        ms10 = time_ms(lambda _: kernels.launch_mesh_plan(margs, kernels.MESH_PLAN))
+    else:
+        ms10 = time_ms(lambda _: mesh.steal_plan(ss, n, device=dev))
+    plain10 = time_ms(lambda _: mesh.steal_plan_plain(ss, n), reps=5)
+    plan = mesh.steal_plan_plain(ss, n)
+    moved = int(plan.moved)
+    if on_card:
+        kernels.launch_mesh_plan(margs, kernels.MESH_PLAN)
+
+        def prep11():
+            s = clone(ss)
+            a = kernels.MeshArgs(s, n)
+            for dst, src in ((a.export_, margs.export_), (a.buf_pos, margs.buf_pos), (a.sh, margs.sh)):
+                dst.copy_(src)
+            return a
+
+        ms11 = time_ms(lambda a: kernels.launch_mesh_steal(a, gated=False), prep11)
+    else:
+        ms11 = time_ms(lambda s: mesh.steal_apply(s, plan, n, device=dev), lambda: clone(ss))
+    plain11 = time_ms(lambda s: mesh.steal_apply_plain(s, plan, n), lambda: clone(ss), reps=5)
+    if on_card:
+        def prep12():
+            return (clone(ss), batch.StateBatch(*(torch.empty_like(x) for x in ss)),
+                    torch.empty(L, dtype=torch.int32, device=dev))
+
+        ms12 = time_ms(lambda a: kernels.launch_mesh_deal(a[0], a[1], n, a[2]), prep12)
+    else:
+        ms12 = time_ms(lambda _: mesh.rebalance(ss, n, device=dev))
+    plain12 = time_ms(lambda _: mesh.rebalance_plain(ss, n), reps=5)
+    order = mesh.deal_order_plain(ss, n)
+    dealt = int((order != torch.arange(L, device=dev)).sum())
+    rb = row_bytes(ss)
+    bytes10 = L * (1 + 4) + L * (1 + 4) + 3 * n * 4 + 4 * 4
+    bytes11 = L * 1 + moved * (4 + 2 * rb + cfg.code_len + 1 + 4 + 4)
+    bytes12 = L * (1 + 4) + dealt * 2 * rb
+
+    cb_w, st_w = results["becstress"][0], results["becstress"][1]
+
+    def wall_of(fn):
+        sync()
+        e0 = torch.cuda.Event(enable_timing=True) if on_card else None
+        e1 = torch.cuda.Event(enable_timing=True) if on_card else None
+        t0 = time.perf_counter()
+        if on_card:
+            e0.record()
+        fn()
+        if on_card:
+            e1.record()
+            torch.cuda.synchronize()
+            return round(e0.elapsed_time(e1), 3)
+        return round((time.perf_counter() - t0) * 1e3, 3)
+
+    super_rounds = {}
+    for label, fn in (
+        ("run_fused", lambda: megakernel.decode_info(megakernel.run_fused(
+            cb_w, None, st_w, max_rounds=rounds, steps_per_round=steps_per_round, with_solve=True, pool=pool0,
+            device=dev).info)),
+        ("run_fused_mesh", lambda: megakernel.decode_mesh_info(megakernel.run_fused_mesh(
+            m, cb_w, None, st_w, max_rounds=rounds, steps_per_round=steps_per_round, with_solve=True,
+            pool=pool0).info, n)),
+    ):
+        super_rounds[label] = [wall_of(fn), wall_of(fn)]
+    emit({"phase": "timing_mesh", "gpu": smi, "shards": n, "steal_state": {"moved": moved, "dealt": dealt},
+          "super_round_ms_becstress": super_rounds, "K10_ms": ms10, "K11_ms": ms11, "K12_ms": ms12})
+
+    def entry(kid, name, source, replaces, launches, ms, plain, nbytes, by_path):
+        return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
+                "launches": launches, "launches_by_path": by_path, "max_abs_err": max_err[kid],
+                "ms": round(ms, 6), "plain_ms": round(plain, 6),
+                "bound_ms": round(nbytes / HBM_BYTES_PER_S * 1e3, 9), "bound_by": "bytes", "library_ms": None}
+
+    by10 = {"e2e_mesh": e2e_counts["K10"], "fused_mesh": fused_mesh_counts["K10"], "sync_mesh": sync_counts["K10"]}
+    by11 = {"e2e_mesh": e2e_counts["K11"], "fused_mesh": fused_mesh_counts["K11"],
+            "skew_demos": sum(d["k11_launches"] for d in demos.values())}
+    by12 = {"sync_mesh": sync_counts["K12"], "e2e_mesh": e2e_counts["K12"]}
+    return [
+        entry("K10", "K10 mesh_plan", "mythril_tpu_torch/csrc/mesh.cu",
+              "mythril_tpu/laser/tpu/mesh.py:127", e2e_counts["K10"], ms10, plain10, bytes10, by10),
+        entry("K11", "K11 mesh_steal", "mythril_tpu_torch/csrc/mesh.cu",
+              "mythril_tpu/laser/tpu/mesh.py:178", e2e_counts["K11"], ms11, plain11, bytes11, by11),
+        entry("K12", "K12 mesh_deal", "mythril_tpu_torch/csrc/mesh.cu",
+              "mythril_tpu/laser/tpu/mesh.py:83", sync_counts["K12"], ms12, plain12, bytes12, by12),
+    ], {"K1": max_err["K1"], "K4": max_err["K4"]}
+
+def mesh_counters():
+    """(zero_counts, read_counts) over the launch counts of K1-K12."""
+    from mythril_tpu_torch.laser.cuda import engine, inloop_solve, keccak, megakernel, mesh, solver, transfer
+
+    counters = {"K1": (engine, "launches"), "K2": (keccak, "launches"), "K3": (inloop_solve, "launches"),
+                "K4": (megakernel, "launches"), "K5": (solver, "launches"),
+                "K6": (transfer, "unpack_launches"), "K7": (transfer, "pack_launches"),
+                "K8": (engine, "hist_launches"), "K9": (engine, "slice_launches"),
+                "K10": (mesh, "plan_launches"), "K11": (mesh, "steal_launches"), "K12": (mesh, "deal_launches")}
+
+    def zero_counts():
+        for mod, attr in counters.values():
+            setattr(mod, attr, 0)
+
+    def read_counts():
+        return {k: getattr(mod, attr) for k, (mod, attr) in counters.items()}
+
+    return zero_counts, read_counts
+
+
+def run_mesh_e2e(dev, cfg, smi, n=8, e2e=("bectoken", 3, 120)):
+    """Phase 12e: one whole analysis through SymExecWrapper over a mesh of
+    n lane shards of the card (MYTHRIL_TPU_MESH=on, mesh.n_devices
+    patched to n). The kernels are built and the strategy warms its
+    config itself, inside the run, as in the e2e phases. Beside the issue
+    set it prints when the device engaged (the first upload of a round,
+    seconds after the analysis started), how long the strategy's warmup
+    took, and what the solver cache answered. Returns the launch counts.
+    Run alone in a fresh process it is the cold analysis:
+
+        python3 -c 'import chip_smoke as c, torch; from mythril_tpu_torch.laser.cuda import _build, batch;
+                    _build.build_all(); c.run_mesh_e2e(torch.device("cuda"), batch.DEFAULT_BATCH_CFG, c.smi_line())'
+    """
+    import threading
+
+    import torch
+
+    from mythril_tpu_torch.analysis.security import fire_lasers
+    from mythril_tpu_torch.analysis.symbolic import SymExecWrapper
+    from mythril_tpu_torch.disassembler.asm import assemble
+    from mythril_tpu_torch.ethereum.evmcontract import EVMContract
+    from mythril_tpu_torch.laser.cuda import backend, mesh, solver_cache, transfer
+    from mythril_tpu_torch.obs import catalog as cat
+    from mythril_tpu_torch.robustness import retry
+
+    on_card = dev.type == "cuda"
+    zero_counts, read_counts = mesh_counters()
+
+    def sync():
+        if on_card:
+            torch.cuda.synchronize()
+
+    name, tx, budget = e2e
+    runtime = assemble(STRESS_SRC) if name == "becstress" else assemble(
+        open(os.path.join(HERE, "bench_contracts", "bectoken.asm")).read())
+    nb = len(runtime)
+    creation = assemble(
+        f"PUSH2 {nb}\nPUSH2 :code\nPUSH1 0x00\nCODECOPY\nPUSH2 {nb}\nPUSH1 0x00\nRETURN\ncode:"
+    ).hex() + runtime.hex()
+    t1 = [0.0]
+    uploads = []  # seconds after t1 of each round's upload (not the warmup's)
+    warm_s = [0.0]
+    warm_threads = set()
+    orig_up, orig_warm = transfer.batch_to_device, backend._do_warmup
+
+    def up_rec(np_batch, cfg_, device="cuda"):
+        if threading.get_ident() not in warm_threads:
+            uploads.append(time.time() - t1[0])
+        return orig_up(np_batch, cfg_, device=device)
+
+    def warm_rec(key, event):
+        t = time.perf_counter()
+        warm_threads.add(threading.get_ident())
+        try:
+            return orig_warm(key, event)
+        finally:
+            warm_threads.discard(threading.get_ident())
+            warm_s[0] += time.perf_counter() - t
+
+    mesh_env = os.environ.get("MYTHRIL_TPU_MESH")
+    n_devices = mesh.n_devices
+    os.environ["MYTHRIL_TPU_MESH"] = "on"
+    mesh.n_devices = lambda device="cuda": n  # n lane shards of the one card
+    transfer.batch_to_device, backend._do_warmup = up_rec, warm_rec
+    run_cfg = cfg
+    try:
+        for attempt in range(2):
+            backend.DEFAULT_BATCH_CFG = run_cfg
+            retry.BREAKER.reset()
+            degraded0 = cat.DEGRADED_ROUNDS_TOTAL.value()
+            cat.ROUND_PHASE_S.reset()
+            snap0 = solver_cache.GLOBAL.snapshot()
+            uploads.clear()
+            warm_s[0] = 0.0
+            sync()
+            zero_counts()
+            t1[0] = time.time()
+            sym = SymExecWrapper(EVMContract(code=runtime.hex(), creation_code=creation, name=name),
+                                 address=0x1234, strategy="cuda-batch", execution_timeout=budget,
+                                 transaction_count=tx, max_depth=128)
+            issues = sorted({(i.swc_id, i.address) for i in fire_lasers(sym)})
+            sync()
+            wall = time.time() - t1[0]
+            e2e_counts = read_counts()
+            strat = backend.find_tpu_strategy(sym.laser.strategy)
+            if strat.device_rounds > 0 or run_cfg.device_engage_after_s == 0.0:
+                break
+            run_cfg = run_cfg._replace(device_engage_after_s=0.0)
+    finally:
+        mesh.n_devices = n_devices
+        transfer.batch_to_device, backend._do_warmup = orig_up, orig_warm
+        backend.DEFAULT_BATCH_CFG = cfg
+        if mesh_env is None:
+            os.environ.pop("MYTHRIL_TPU_MESH", None)
+        else:
+            os.environ["MYTHRIL_TPU_MESH"] = mesh_env
+    snap = solver_cache.GLOBAL.snapshot()
+    degraded = cat.DEGRADED_ROUNDS_TOTAL.value() - degraded0
+    gauges = {str(s): cat.MESH_FRONTIER_OCCUPANCY.value(str(s)) for s in range(n)}
+    phases = {ph: [cat.ROUND_PHASE_S.percentile(50, ph), cat.ROUND_PHASE_S.count(ph)]
+              for ph in ("host_exec", "solve", "pack", "lift", "triage", "device_round")}
+    emit({"phase": "e2e_mesh", "contract": name, "tx": tx, "budget_s": budget, "shards": n,
+          "device_engage_after_s": run_cfg.device_engage_after_s, "issues": issues,
+          "expected": EXPECTED_ISSUES[name], "wall_s": round(wall, 3),
+          "strategy_warmup_s": round(warm_s[0], 3),
+          "first_upload_s": round(uploads[0], 3) if uploads else None,
+          "upload_s": [round(u, 1) for u in uploads], "device_rounds": strat.device_rounds,
+          "fused_rounds": strat.fused_rounds, "fused_syncs": strat.fused_syncs,
+          "device_steps_retired": strat.device_steps_retired, "device_wall_s": round(strat.device_wall_s, 3),
+          "total_states": sym.laser.total_states, "steal_events": strat.mesh_steal_events,
+          "steal_lanes": strat.mesh_steal_lanes, "occupancy": strat.mesh_occupancy,
+          "solver_cache": {k: snap[k] - snap0[k] for k in snap if isinstance(snap[k], (int, float))
+                           and isinstance(snap0.get(k), (int, float))},
+          "occupancy_gauges": gauges, "round_phase_p50_s_and_count": phases, "launches": e2e_counts,
+          "degraded_rounds": strat.degraded_rounds,
+          "degraded_rounds_total": degraded, "breaker": retry.BREAKER.state(), "gpu": smi})
+    if issues != EXPECTED_ISSUES[name]:
+        raise AssertionError(f"{name} over the mesh: issues {issues}, expected {EXPECTED_ISSUES[name]}")
+    if strat.device_rounds <= 0 or strat.fused_rounds <= 0 or len(strat.mesh_occupancy) != n:
+        raise AssertionError(f"{name}: no fused mesh round ran")
+    if strat.degraded_rounds or degraded or retry.BREAKER.state() != "closed":
+        raise AssertionError(f"{name}: a round degraded over the mesh")
+    missing = [k for k in ("K1", "K4", "K6", "K7", "K10", "K11") if e2e_counts[k] <= 0]
+    if on_card and missing:
+        raise AssertionError(f"kernels the mesh analysis never launched: {missing}")
+    return e2e_counts
 
 
 if __name__ == "__main__":

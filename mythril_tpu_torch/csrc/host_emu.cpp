@@ -1,13 +1,14 @@
 // Host emulation of the kernels' lane logic, for the CPU tests: the same
 // headers compiled as plain C++ (-DMT_HOST_EMU), with loops over lanes
 // standing in for the grids of step.cu, inloop.cu, megakernel.cu,
-// keccak.cu, solve.cu, transfer.cu, hist.cu and slice.cu. Built with g++ by tests/test_torch_kernel_logic.py; never
-// used on the card.
+// keccak.cu, solve.cu, transfer.cu, hist.cu, slice.cu and mesh.cu. Built with g++ by
+// tests/test_torch_kernel_logic.py and tests/test_torch_mesh_kernels.py; never used on the card.
 #include <stdint.h>
 
 #include "hist.cuh"
 #include "inloop.cuh"
 #include "megakernel.cuh"
+#include "mesh.cuh"
 #include "slice.cuh"
 #include "solve.cuh"
 #include "step.cuh"
@@ -23,11 +24,13 @@ struct HostRow {
 
 extern "C" {
 
-// K1: plan, K2 over the SHA3 windows, lane pass, fork copies
-int emu_step(const Planes* Pp, const Bank* Bp, const int32_t* tab, int32_t* slot, uint8_t* fork_do,
-             int32_t* fork_dest, uint8_t* sha_active, int32_t* sha_off, int32_t* sha_avail,
-             int32_t* sha_len, uint8_t* sha_digest) {
+// K1: plan (n_shards blocks, step.cu), K2 over the SHA3 windows, lane
+// pass, fork copies
+int emu_step_sharded(const Planes* Pp, const Bank* Bp, const int32_t* tab, int32_t* slot,
+                     uint8_t* fork_do, int32_t* fork_dest, uint8_t* sha_active, int32_t* sha_off,
+                     int32_t* sha_avail, int32_t* sha_len, uint8_t* sha_digest, int n_shards) {
   const Planes& P = *Pp;
+  if (n_shards < 1 || P.L % n_shards != 0) return 2;
   const Bank& B = *Bp;
   if (P.L > 1024) return 1;
   uint8_t free_[1024], req[1024];
@@ -38,7 +41,8 @@ int emu_step(const Planes* Pp, const Bank* Bp, const int32_t* tab, int32_t* slot
     req[l] = fork_base_of(P, B, tab, l, &dest) ? 1 : 0;
     sha_request(P, B, l, sha_active, sha_off, sha_avail, sha_len);
   }
-  plan_assign(P.L, free_, req, slot, rank);
+  for (int s = 0; s < n_shards; ++s)
+    plan_assign_block(P.L / n_shards, s * (P.L / n_shards), free_, req, slot, rank);
   for (int l = 0; l < P.L; ++l) {
     if (!sha_active[l]) continue;
     HostRow g{PL(uint8_t, F_MEMORY) + (int64_t)l * P.M + sha_off[l], sha_avail[l]};
@@ -53,6 +57,13 @@ int emu_step(const Planes* Pp, const Bank* Bp, const int32_t* tab, int32_t* slot
   return 0;
 }
 
+int emu_step(const Planes* Pp, const Bank* Bp, const int32_t* tab, int32_t* slot, uint8_t* fork_do,
+             int32_t* fork_dest, uint8_t* sha_active, int32_t* sha_off, int32_t* sha_avail,
+             int32_t* sha_len, uint8_t* sha_digest) {
+  return emu_step_sharded(Pp, Bp, tab, slot, fork_do, fork_dest, sha_active, sha_off, sha_avail,
+                          sha_len, sha_digest, 1);
+}
+
 // K3
 int emu_unsat(const Planes* P, const Pool* pool, uint8_t* out) {
   for (int l = 0; l < P->L; ++l) out[l] = unsat_lane(*P, *pool, l) ? 1 : 0;
@@ -60,26 +71,41 @@ int emu_unsat(const Planes* P, const Pool* pool, uint8_t* out) {
 }
 
 // K4: plan, gather into scratch with folds, copy back, commit ctl
-int emu_epilogue(const Planes* Pp, const Planes* Sp, const uint8_t* prune_revert,
-                 const uint8_t* unsat, int32_t* acc, int32_t* order, uint8_t* dying, uint8_t* pv,
-                 int32_t* ctl, int max_rounds) {
+// (megakernel.cu, with its shard count, flags and gate)
+int emu_epilogue_sharded(const Planes* Pp, const Planes* Sp, const uint8_t* prune_revert,
+                         const uint8_t* unsat, int32_t* acc, int32_t* order, uint8_t* dying,
+                         uint8_t* pv, int32_t* ctl, int max_rounds, int n_shards, int flags,
+                         const int32_t* gate) {
   const Planes& P = *Pp;
   const Planes& Sc = *Sp;
   if (P.L > 1024) return 1;
+  if (n_shards < 1 || P.L % n_shards != 0) return 2;
   if (!ctl[1]) return 0;
-  uint8_t dead_s[1024], dying_s[1024];
-  for (int l = 0; l < P.L; ++l) {
-    bool dead;
-    dying_s[l] = dying_of(P, prune_revert, unsat, l, &dead) ? 1 : 0;
-    dead_s[l] = dead ? 1 : 0;
+  if (!gate || gate[0]) {
+    const bool compact_only = flags & EPI_COMPACT_ONLY;
+    uint8_t dead_s[1024], dying_s[1024];
+    for (int l = 0; l < P.L; ++l) {
+      bool dead = false;
+      dying_s[l] = !compact_only && dying_of(P, prune_revert, unsat, l, &dead) ? 1 : 0;
+      dead_s[l] = dead ? 1 : 0;
+    }
+    epi_plan_serial(P, dead_s, dying_s, acc, order, dying, ctl, max_rounds, n_shards, !compact_only);
+    for (int d = 0; d < P.L; ++d) copy_row_part(P, Sc, order[d], d, 0, 1);
+    for (int d = 0; d < P.L; ++d) epi_fold_lane(P, Sc, order, dying, pv, d, 0, 1);
+    for (int d = 0; d < P.L; ++d) copy_row_part(Sc, P, d, d, 0, 1);
   }
-  epi_plan_serial(P, dead_s, dying_s, acc, order, dying, ctl, max_rounds);
-  for (int d = 0; d < P.L; ++d) copy_row_part(P, Sc, order[d], d, 0, 1);
-  for (int d = 0; d < P.L; ++d) epi_fold_lane(P, Sc, order, dying, pv, d, 0, 1);
-  for (int d = 0; d < P.L; ++d) copy_row_part(Sc, P, d, d, 0, 1);
-  ctl[0] = ctl[2];
-  ctl[1] = ctl[3];
+  if (flags & EPI_COMMIT) {
+    ctl[0] = ctl[2];
+    ctl[1] = ctl[3];
+  }
   return 0;
+}
+
+int emu_epilogue(const Planes* Pp, const Planes* Sp, const uint8_t* prune_revert,
+                 const uint8_t* unsat, int32_t* acc, int32_t* order, uint8_t* dying, uint8_t* pv,
+                 int32_t* ctl, int max_rounds) {
+  return emu_epilogue_sharded(Pp, Sp, prune_revert, unsat, acc, order, dying, pv, ctl, max_rounds,
+                              1, EPI_COMMIT, nullptr);
 }
 
 // K2, flat rows
@@ -138,6 +164,49 @@ int emu_slice_ctl(const uint8_t* alive, const int32_t* status, int L, int32_t* c
   int any_running = 0;
   for (int l = 0; l < L; ++l) any_running |= lane_running(alive, status, l);
   slice_ctl_commit(ctl, any_running, max_steps);
+  return 0;
+}
+
+// K10: counts per shard (thread per shard), then the plan
+int emu_mesh_plan(const Planes* Pp, int n, int flags, uint8_t* export_, int32_t* buf_pos,
+                  int32_t* sh, int32_t* mctl, const int32_t* ctl) {
+  const Planes& P = *Pp;
+  if (n < 1 || n > MESH_MAX_SHARDS || P.L % n != 0) return 2;
+  if (ctl && !ctl[1]) return 0;
+  int32_t sur[MESH_MAX_SHARDS], dbase[MESH_MAX_SHARDS], rbase[MESH_MAX_SHARDS],
+      rend[MESH_MAX_SHARDS];
+  const int per = P.L / n;
+  for (int s = 0; s < n; ++s) mesh_count_shard(P, per, s, n, sh);
+  if (!(flags & MESH_PLAN)) return 0;
+  int moved = mesh_plan_scalars(per, n, sh, sur, dbase, rbase, rend);
+  mesh_commit(sh, n, moved, flags, mctl);
+  for (int s = 0; s < n; ++s)
+    mesh_plan_shard(P, per, n, s, sh, sur, dbase, rbase, rend, moved, export_, buf_pos);
+  return 0;
+}
+
+// K11: every exported lane's move
+int emu_mesh_steal(const Planes* Pp, int n, const uint8_t* export_, const int32_t* buf_pos,
+                   const int32_t* sh, const int32_t* ctl, const int32_t* gate) {
+  const Planes& P = *Pp;
+  if (n < 1 || n > MESH_MAX_SHARDS || P.L % n != 0) return 2;
+  if ((ctl && !ctl[1]) || (gate && !gate[0])) return 0;
+  for (int l = 0; l < P.L; ++l) {
+    if (!export_[l]) continue;
+    copy_row_part(P, P, l, mesh_target(sh, P.L / n, n, buf_pos[l]), 0, 1);
+    mesh_kill_part(P, l, 0, 1);
+  }
+  return 0;
+}
+
+// K12: the deal's order, the gather into scratch, the copy back
+int emu_mesh_deal(const Planes* Pp, const Planes* Sp, int n, int32_t* order) {
+  const Planes& P = *Pp;
+  if (n < 1 || n > MESH_MAX_SHARDS || P.L % n != 0 || P.L > 1024) return 2;
+  int32_t packed[1024];
+  mesh_deal_order(P, n, packed, order);
+  for (int d = 0; d < P.L; ++d) copy_row_part(P, *Sp, order[d], d, 0, 1);
+  for (int d = 0; d < P.L; ++d) copy_row_part(*Sp, P, d, d, 0, 1);
   return 0;
 }
 }

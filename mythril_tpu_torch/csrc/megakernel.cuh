@@ -8,7 +8,15 @@
 
 // ctl = [r, continue, r_next, continue_next]: epi_plan stages the next
 // control word in ctl[2..3]; epi_ctl commits it after the gather and
-// copy-back of the same round have run under the current one.
+// copy-back of the same round have run under the current one. The fused
+// mesh tier commits only after the round's work-steal (K10/K11) and its
+// compaction, which run under the same word: the reference's loop body
+// is round + steal, and the condition is tested after both.
+
+// epilogue flags: commit the staged control word; compaction only (no
+// prune, kill, folds or staging: the compaction after a steal)
+#define EPI_COMMIT 1
+#define EPI_COMPACT_ONLY 2
 
 MT_DEV bool dying_of(const Planes& P, const uint8_t* prune_revert, const uint8_t* unsat, int l,
                      bool* dead) {
@@ -21,14 +29,18 @@ MT_DEV bool dying_of(const Planes& P, const uint8_t* prune_revert, const uint8_t
 
 // Serial part of epi_plan (thread 0): the accumulator folds (int32,
 // wrapping like the reference's i32 sums), the stable order (survivors
-// first, each group in lane order) and the staged control word.
+// first, each group in lane order) and the staged control word. The
+// order is stable inside each of the n_shards contiguous lane blocks
+// (compact_impl under shard_map, megakernel.py:121 in the body at :378;
+// one block on a single device), and the folds and the RUNNING test stay
+// over all lanes (the reference psums them). Without ``fold`` (a
+// compaction only) the accumulators and the control word are left alone.
 MT_DEV void epi_plan_serial(const Planes& P, const uint8_t* dead_s, const uint8_t* dying_s,
                             int32_t* acc, int32_t* order, uint8_t* dying_out, int32_t* ctl,
-                            int max_rounds) {
+                            int max_rounds, int n_shards, bool fold) {
   const int L = P.L;
   uint32_t pl = 0, uk = 0, ps = 0, px = 0;
   bool any_running = false;
-  int n_alive = 0;
   for (int l = 0; l < L; ++l) {
     bool dy = dying_s[l];
     pl += dead_s[l];
@@ -38,21 +50,24 @@ MT_DEV void epi_plan_serial(const Planes& P, const uint8_t* dead_s, const uint8_
       px += (uint32_t)PL(int32_t, F_STATIC_PRUNED)[l];
     }
     bool alive_after = PL(uint8_t, F_ALIVE)[l] && !dy;
-    if (alive_after) {
-      ++n_alive;
-      if (PL(int32_t, F_STATUS)[l] == RUNNING) any_running = true;
-    }
+    if (alive_after && PL(int32_t, F_STATUS)[l] == RUNNING) any_running = true;
     dying_out[l] = dy;
   }
+  const int per = L / n_shards;
+  for (int base = 0; base < L; base += per) {
+    int n_alive_s = 0;
+    for (int l = base; l < base + per; ++l) n_alive_s += PL(uint8_t, F_ALIVE)[l] && !dying_s[l];
+    int front = base, back = base + n_alive_s;
+    for (int l = base; l < base + per; ++l) {
+      bool alive_after = PL(uint8_t, F_ALIVE)[l] && !dying_s[l];
+      if (alive_after) order[front++] = l; else order[back++] = l;
+    }
+  }
+  if (!fold) return;
   acc[0] = (int32_t)((uint32_t)acc[0] + pl);
   acc[1] = (int32_t)((uint32_t)acc[1] + ps);
   acc[2] = (int32_t)((uint32_t)acc[2] + px);
   acc[3] = (int32_t)((uint32_t)acc[3] + uk);
-  int front = 0, back = n_alive;
-  for (int l = 0; l < L; ++l) {
-    bool alive_after = PL(uint8_t, F_ALIVE)[l] && !dying_s[l];
-    if (alive_after) order[front++] = l; else order[back++] = l;
-  }
   int r_next = ctl[0] + 1;
   ctl[2] = r_next;
   ctl[3] = (r_next < max_rounds && any_running) ? 1 : 0;

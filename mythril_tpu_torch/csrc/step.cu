@@ -4,14 +4,17 @@
 // (launched by the Python wrapper from the keccak library), then lane
 // (one thread per lane, in place) and fork (one block per forking parent
 // copies its lane into the child). Each kernel reads the fused loop's
-// control word first (ctl may be null outside the loop).
+// control word first (ctl may be null outside the loop). With n_shards
+// > 1 (the fused mesh tier) the plan ranks forks inside each of the
+// n_shards contiguous lane blocks, one thread per block; with n_shards = 1
+// the one block is every lane (the single-device plan, thread 0).
 #include "step.cuh"
 
 #define PLAN_MAX_LANES 1024
 
 __global__ void step_plan_kernel(Planes P, Bank B, const int32_t* tab, int32_t* slot,
                                  uint8_t* sha_active, int32_t* sha_off, int32_t* sha_avail,
-                                 int32_t* sha_len, const int32_t* ctl) {
+                                 int32_t* sha_len, const int32_t* ctl, int n_shards) {
   if (ctl && !ctl[1]) return;
   __shared__ uint8_t free_s[PLAN_MAX_LANES];
   __shared__ uint8_t req_s[PLAN_MAX_LANES];
@@ -23,7 +26,9 @@ __global__ void step_plan_kernel(Planes P, Bank B, const int32_t* tab, int32_t* 
     sha_request(P, B, l, sha_active, sha_off, sha_avail, sha_len);
   }
   __syncthreads();
-  if (threadIdx.x == 0) plan_assign(P.L, free_s, req_s, slot, rank_s);
+  int per = P.L / n_shards;
+  for (int s = threadIdx.x; s < n_shards; s += blockDim.x)
+    plan_assign_block(per, s * per, free_s, req_s, slot, rank_s);
 }
 
 __global__ void step_lane_kernel(Planes P, Bank B, const int32_t* tab, const int32_t* slot,
@@ -50,11 +55,14 @@ MT_ERROR_STRING_FN
 
 MT_EXPORT int mt_step_plan(const Planes* P, const Bank* B, const int32_t* tab, int32_t* slot,
                            uint8_t* sha_active, int32_t* sha_off, int32_t* sha_avail,
-                           int32_t* sha_len, const int32_t* ctl, int nfields, cudaStream_t stream) {
+                           int32_t* sha_len, const int32_t* ctl, int n_shards, int nfields,
+                           cudaStream_t stream) {
   if (nfields != NFIELDS) return (int)cudaErrorInvalidValue;
   if (P->L > PLAN_MAX_LANES || P->L <= 0) return (int)cudaErrorInvalidConfiguration;
+  if (n_shards < 1 || P->L % n_shards != 0) return (int)cudaErrorInvalidValue;
   step_plan_kernel<<<1, P->L < 256 ? P->L : 256, 0, stream>>>(*P, *B, tab, slot, sha_active,
-                                                                sha_off, sha_avail, sha_len, ctl);
+                                                                sha_off, sha_avail, sha_len, ctl,
+                                                                n_shards);
   return (int)cudaGetLastError();
 }
 

@@ -87,6 +87,20 @@ MT_DEV void plan_assign(int L, const uint8_t* free_, const uint8_t* req, int32_t
   }
 }
 
+// The same ranking inside one block [base, base + per) of a mesh of
+// contiguous lane blocks: the fused mesh tier runs the step under
+// shard_map (megakernel.py:360), so each shard ranks only its own free
+// lanes and requests, and a request of a shard with no free lane left
+// gets SLOT_FULL (fork_no_slot) whatever the other shards hold. Slots
+// stay global lane indices.
+MT_DEV void plan_assign_block(int per, int base, const uint8_t* free_, const uint8_t* req,
+                              int32_t* slot, int32_t* free_by_rank) {
+  plan_assign(per, free_ + base, req + base, slot + base, free_by_rank + base);
+  if (base)
+    for (int l = base; l < base + per; ++l)
+      if (slot[l] >= 0) slot[l] += base;
+}
+
 // The concrete SHA3 request of a lane (engine.py:782-793): RUNNING lanes
 // at SHA3 that do not trap on length hash min(b32, SHA_CAP) bytes of
 // their memory from a32 on (bytes past the plane read as zero). The plan

@@ -35,7 +35,7 @@ import torch
 PKG_DIR = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 CSRC = os.path.join(PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(PKG_DIR, "_build")
-SOURCES = ("keccak", "step", "inloop", "megakernel", "solve", "transfer", "hist", "slice")
+SOURCES = ("keccak", "step", "inloop", "megakernel", "solve", "transfer", "hist", "slice", "mesh")
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-lineinfo",

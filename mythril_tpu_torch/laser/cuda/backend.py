@@ -28,9 +28,15 @@ tiers are ported: the fused super-round, and the synchronous slice loop
 (engine.run: K9 + K1/K2) that the reference takes when
 ``MYTHRIL_TPU_FUSED=off`` or the breaker is half-open. Stats mode
 (``--enable-iprof``) adds K8's retired-opcode histogram to either tier.
-The mesh tier is always off. A kernel failure (KernelError, or a CUDA
-fault torch reports after a launch) is never turned into a host round:
-every degrade handler re-raises it.
+When ``mesh.n_devices`` (1 until the shards can span several cards,
+so production runs the single-device tiers; the tests patch it) is
+above 1 and ``_mesh_tier`` allows it, a round runs on the mesh tiers instead: the fused
+mesh super-round (megakernel.run_fused_mesh: forks, pruning and
+compaction per lane shard, work-stealing between rounds, K10/K11) or
+the sync mesh loop (mesh.sharded_round: K9 + K1/K2, the deal K12, the
+occupancy K10). A kernel failure (KernelError, or a CUDA fault torch
+reports after a launch) is never turned into a host round: every
+degrade handler re-raises it.
 """
 
 import logging
@@ -621,12 +627,60 @@ def _raise_warmup_error(cfg: BatchConfig, want_stats: bool = False) -> None:
         raise err
 
 
+# lockstep steps between rebalance opportunities on the sync mesh tier
+MESH_STEPS_PER_ROUND = 256
+
+
+# mesh execution policy: "auto" shards over mesh.n_devices() shards
+# but stays single-device on the CPU; "on" forces sharding, "sync" forces
+# sharding but pins the one-round-per-dispatch loop (the fused mesh
+# tier's degrade tier), "off" forces the single-device path.
+# MYTHRIL_TPU_MESH overrides per process.
+MESH_MODE = "auto"
+
+# watchdog headroom multiplier while the mesh tier is active: fused mesh
+# super-rounds also pay the steal's plan and moves per round, which the
+# single-device EMA never saw
+MESH_WATCHDOG_FACTOR = 1.5
+
+
+def _mesh_tier(n_devices: int, platform: str) -> str:
+    """Which mesh tier the next device round runs: "off" (single
+    device), "sync" (the sharded slice loop), or "fused" (the fused mesh
+    super-round with work-stealing). ``platform`` is "cuda" or "cpu".
+    The fused tier obeys the same breaker half-open degrade as the
+    single-device super-round: trial rounds probe the device through the
+    simpler sync machinery."""
+    mode = os.environ.get("MYTHRIL_TPU_MESH", MESH_MODE).lower()
+    if mode not in ("auto", "on", "off", "sync"):
+        log.warning("bad MYTHRIL_TPU_MESH=%r ignored", mode)
+        mode = MESH_MODE
+    if n_devices < 2 or mode == "off":
+        return "off"
+    if mode == "auto" and platform == "cpu":
+        return "off"
+    if mode == "sync":
+        return "sync"
+    return "fused" if _fused_enabled() else "sync"
+
+
+def _device_mesh_tier():
+    """(n_shards, tier) for DEVICE as the next round would run it."""
+    from mythril_tpu_torch.laser.cuda import mesh as mesh_lib
+
+    import torch
+
+    n = mesh_lib.n_devices(DEVICE)
+    return n, _mesh_tier(n, torch.device(DEVICE).type)
+
+
 def planned_mesh_factor() -> float:
-    """Watchdog multiplier for the tier the next round will run
-    (robustness/retry.py): 1.0. The port runs on the current CUDA device
-    only; the mesh tiers (B11/B12, ROADMAP.md queue A item 12) are not
-    ported."""
-    return 1.0
+    """Watchdog multiplier for the tier the next round will run —
+    robustness/retry.py folds this into the round watchdog alongside
+    planned_fused_k() so the mesh's steal work is never mistaken for a
+    wedged device."""
+    _n, tier = _device_mesh_tier()
+    return MESH_WATCHDOG_FACTOR if tier != "off" else 1.0
 
 
 # steps per deadline check: a full DEVICE_STEP_BUDGET round can take
@@ -786,14 +840,17 @@ def _drain_ss_rings(bridge, st):
 
 
 def _run_device(cb, st, cfg, want_stats=False, deadline=None, bridge=None):
-    """Run the packed batch to quiescence on the single device: the fused
+    """Run the packed batch to quiescence: on the single device the fused
     super-round, or (``MYTHRIL_TPU_FUSED=off``, a half-open breaker) the
-    synchronous slice loop.
+    synchronous slice loop; on a mesh of lane shards (more than one
+    shard, see ``_mesh_tier``) the fused mesh super-round or the sync
+    mesh loop.
 
     Returns ``(state, op_hist_or_None)``; the retired-opcode histogram
-    (numpy u32[256]) feeds the instruction profiler (``want_stats``).
-    ``deadline`` (time.time value) bounds the round for
-    --execution-timeout honesty."""
+    (numpy u32[256]) feeds the instruction profiler (``want_stats``; the
+    sync mesh loop, as the reference's, produces none). ``deadline``
+    (time.time value) bounds the round for --execution-timeout
+    honesty."""
     if bridge is not None:
         # reset the fused-round stash: a long-lived bridge must not
         # replay a PREVIOUS round's fused stats into exec_batch when
@@ -801,6 +858,12 @@ def _run_device(cb, st, cfg, want_stats=False, deadline=None, bridge=None):
         bridge.fused_round_info = None
         bridge.fused_pruned_visited = None
         bridge.mesh_n_shards = 1
+    n_shards, tier = _device_mesh_tier()
+    if cfg.lanes % max(1, n_shards) != 0:
+        tier = "off"
+    if tier != "off":
+        st, hist = _run_device_mesh(cb, st, n_shards, tier, want_stats, deadline, bridge)
+        return st, _hist_to_host(hist)
     if _fused_enabled():
         st, hist = _run_device_fused(
             cb, st, cfg, want_stats=want_stats, deadline=deadline, bridge=bridge
@@ -828,6 +891,191 @@ def _run_device(cb, st, cfg, want_stats=False, deadline=None, bridge=None):
         if deadline is not None and time.time() > deadline:
             break
     return st, _hist_to_host(hist)
+
+
+def _run_device_mesh(cb, st, n_shards, tier, want_stats, deadline, bridge):
+    """The mesh tiers of ``_run_device`` over ``n_shards`` lane shards."""
+    from mythril_tpu_torch.laser.cuda import mesh as mesh_lib
+
+    if bridge is not None:
+        # per-shard download bucketing (transfer.batch_to_host) keys off
+        # this: the mesh compaction leaves one dense prefix PER shard
+        bridge.mesh_n_shards = n_shards
+    mesh = mesh_lib.make_mesh(n_shards, device=DEVICE)
+    st = mesh_lib.shard_batch(st, mesh)
+    cb, env = mesh_lib.put_replicated((cb, default_env()), mesh)
+    if tier == "fused":
+        return _run_mesh_fused(
+            mesh, n_shards, cb, env, st, want_stats=want_stats,
+            deadline=deadline, bridge=bridge,
+        )
+
+    # sync degrade tier: one sharded round per dispatch. Quiescence and
+    # rebalance gating both read the occupancy vector the PREVIOUS
+    # dispatch computed on device — one i32[n_shards] fetch per round
+    # instead of the full alive plane plus a separate occupancy pull.
+    steps_done = 0
+    occ = None
+    while steps_done < DEVICE_STEP_BUDGET:
+        _cat.DEVICE_SLICES_TOTAL.inc()
+        do_reb = occ is not None and mesh_lib.should_rebalance_occ(occ)
+        t0 = time.time()
+        st, occ_dev = mesh_lib.sharded_round(
+            cb,
+            env,
+            st,
+            steps_per_round=MESH_STEPS_PER_ROUND,
+            do_rebalance=do_reb,
+            n_shards=n_shards,
+            device=mesh.device,
+        )
+        with _build.sync_point():
+            occ = occ_dev.cpu().numpy()  # the one blocking fetch this round
+        _cat.ROUND_PHASE_S.observe(time.time() - t0, "device_round_iter")
+        obs.TRACER.cut(
+            "mesh_round", "device_round_iter", shards=n_shards,
+            rebalanced=bool(do_reb),
+        )
+        steps_done += MESH_STEPS_PER_ROUND
+        if bridge is not None:
+            drained = _drain_ss_rings(bridge, st)
+            if drained is not st:
+                # the drain resumed TRAP_SS lanes, so the fetched occ is
+                # stale: force a fresh occupancy next round
+                st = mesh_lib.shard_batch(drained, mesh)
+                occ = None
+        if occ is not None and int(occ.sum()) == 0:
+            break
+        if deadline is not None and time.time() > deadline:
+            break
+    obs.TRACER.end_cut("mesh_round")
+    return st, None
+
+
+def _run_mesh_fused(
+    mesh, n_shards, cb, env, st, want_stats=False, deadline=None, bridge=None
+):
+    """Fused MESH path: the super-round with per-shard forks, pruning and
+    compaction and on-device work-stealing between rounds
+    (megakernel.run_fused_mesh). Host-sync cadence and totals
+    accounting mirror _run_device_fused; the info vector additionally
+    carries the steal counters and the per-shard frontier occupancy,
+    which feed the myth_mesh_* gauges without any extra device fetch."""
+    from mythril_tpu_torch.laser.cuda import megakernel
+
+    k = _pick_fused_k()
+    rounds_left = k
+    hist = None
+    pruned_visited = None
+    with_solve = _inloop_enabled()
+    # one pool per super-round, same cadence as the single-device path
+    pool = (
+        transfer.pool_to_device(solver_cache.GLOBAL.build_inloop_pool(), device=mesh.device)
+        if with_solve
+        else None
+    )
+    totals = {
+        "k": k,
+        "rounds": 0,
+        "syncs": 0,
+        "k_samples": [],
+        "pruned_lanes": 0,
+        "pruned_steps": 0,
+        "pruned_static": 0,
+        "inloop_kills": 0,
+        "device_wall_s": 0.0,
+        "n_shards": n_shards,
+        "steal_events": 0,
+        "steal_lanes": 0,
+        "occupancy": [],
+    }
+    while rounds_left > 0:
+        dispatch = rounds_left
+        if deadline is not None:
+            remaining = deadline - time.time()
+            if remaining <= 0:
+                break
+            cost = _fused_round_cost_s[0]
+            if cost > 0:
+                dispatch = min(dispatch, max(1, int(remaining / cost)))
+        _cat.DEVICE_SLICES_TOTAL.inc()
+        t0 = time.time()
+        fo = megakernel.run_fused_mesh(
+            mesh,
+            cb,
+            env,
+            st,
+            max_rounds=dispatch,
+            steps_per_round=_fused_steps_per_round(),
+            with_stats=want_stats,
+            with_solve=with_solve,
+            pool=pool,
+        )
+        st = fo.st
+        stats = megakernel.decode_mesh_info(fo.info, n_shards)  # one fetch
+        wall = time.time() - t0
+        totals["syncs"] += 1
+        totals["rounds"] += stats.rounds
+        totals["k_samples"].append(stats.rounds)
+        totals["pruned_lanes"] += stats.pruned_lanes
+        totals["pruned_steps"] += stats.pruned_steps
+        totals["pruned_static"] += stats.pruned_static
+        totals["inloop_kills"] += stats.inloop_kills
+        totals["device_wall_s"] += wall
+        if stats.inloop_kills:
+            _cat.INLOOP_UNSAT_KILLS_TOTAL.inc(stats.inloop_kills)
+        totals["steal_events"] += stats.steal_events
+        totals["steal_lanes"] += stats.steal_lanes
+        totals["occupancy"] = list(stats.occupancy)
+        for shard, occ_v in enumerate(stats.occupancy):
+            _cat.MESH_FRONTIER_OCCUPANCY.set(occ_v, str(shard))
+        if stats.steal_events:
+            _cat.MESH_STEAL_EVENTS_TOTAL.inc(stats.steal_events)
+            _cat.MESH_STEAL_LANES_TOTAL.inc(stats.steal_lanes)
+            obs.TRACER.cut(
+                "mesh_steal", "steal", events=stats.steal_events,
+                lanes=stats.steal_lanes,
+            )
+            obs.TRACER.end_cut("mesh_steal")
+        if stats.pruned_lanes or stats.inloop_kills:
+            with _build.sync_point():
+                pv = fo.pruned_visited.cpu().numpy()
+            pruned_visited = (
+                pv if pruned_visited is None else (pruned_visited | pv)
+            )
+        if want_stats:
+            hist = fo.hist if hist is None else hist + fo.hist
+        if stats.rounds:
+            sample = wall / stats.rounds
+            prev = _fused_round_cost_s[0]
+            _fused_round_cost_s[0] = (
+                sample if not prev else 0.5 * prev + 0.5 * sample
+            )
+            for _ in range(stats.rounds):
+                _cat.ROUND_PHASE_S.observe(sample, "device_round_iter")
+                obs.TRACER.cut(
+                    "fused_round", "device_round_iter", rounds=stats.rounds,
+                    shards=n_shards,
+                )
+            obs.TRACER.end_cut("fused_round")
+        rounds_left -= max(1, stats.rounds)
+        resumed = False
+        if bridge is not None:
+            from mythril_tpu_torch.laser.cuda import mesh as mesh_lib
+
+            drained = _drain_ss_rings(bridge, st)
+            if drained is not st:
+                # resumed TRAP_SS lanes invalidate the fetched running
+                # count; let the next dispatch re-derive it
+                st = mesh_lib.shard_batch(drained, mesh)
+                resumed = True
+        if not resumed and stats.n_running == 0:
+            # quiescence straight from the info vector — no extra fetch
+            break
+    if bridge is not None:
+        bridge.fused_round_info = totals
+        bridge.fused_pruned_visited = pruned_visited
+    return st, hist
 
 
 def _hist_to_host(hist):

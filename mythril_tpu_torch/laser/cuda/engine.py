@@ -156,8 +156,15 @@ def _on_lanes(mask, fn, *args, width=words.NDIGITS):
     return out
 
 
-def step_plain(cb: CodeBank, st: StateBatch) -> StateBatch:
-    """Plain PyTorch twin of the reference ``step_impl`` (one step)."""
+def step_plain(cb: CodeBank, st: StateBatch, n_shards: int = 1) -> StateBatch:
+    """Plain PyTorch twin of the reference ``step_impl`` (one step).
+
+    ``n_shards`` > 1 is the step as each shard of the fused mesh tier
+    runs it under ``shard_map`` (megakernel.py:360): every lane-local
+    part is the same, and forks are placed inside each of the
+    ``n_shards`` contiguous lane blocks (a block with no free lane left
+    traps its forking parents with ``fork_no_slot``). The any-lane gates
+    are per lane here already, so their scope does not matter."""
     D = words.NDIGITS
     dev = st.pc.device
     L = st.stack.shape[0]
@@ -664,9 +671,12 @@ def step_plain(cb: CodeBank, st: StateBatch) -> StateBatch:
     ) | must_fall
     fork_base = fork_want & ~prune_child
     free = ~st.alive
-    nfree = free.to(I64).sum()
-    free_rank = torch.cumsum(free.to(I64), 0) - 1
-    req_rank = torch.cumsum(fork_base.to(I64), 0) - 1
+    # ranks inside each lane block (one block: the whole batch)
+    per = L // n_shards
+    base = (lane // per) * per
+    nfree = free.to(I64).view(n_shards, per).sum(1).repeat_interleave(per)
+    free_rank = (torch.cumsum(free.to(I64).view(n_shards, per), 1) - 1).reshape(L)
+    req_rank = (torch.cumsum(fork_base.to(I64).view(n_shards, per), 1) - 1).reshape(L)
     has_slot = fork_base & (req_rank < nfree)
     fork_no_slot = fork_base & ~has_slot
 
@@ -887,8 +897,8 @@ def step_plain(cb: CodeBank, st: StateBatch) -> StateBatch:
     if not bool(fork_do.any()):
         return StateBatch(**nst)
     free_by_rank = torch.zeros(L, dtype=I64, device=dev)
-    free_by_rank[free_rank[free]] = lane[free]
-    child_lane = free_by_rank[req_rank.clamp(0, L - 1)]
+    free_by_rank[base[free] + free_rank[free]] = lane[free]
+    child_lane = free_by_rank[base + req_rank.clamp(0, per - 1)]
     src_map = lane.clone()
     src_map[child_lane[fork_do]] = lane[fork_do]
     child_mask = torch.zeros(L, dtype=torch.bool, device=dev)
@@ -904,25 +914,30 @@ def step_plain(cb: CodeBank, st: StateBatch) -> StateBatch:
     return StateBatch(**fst)
 
 
-def step(cb: CodeBank, env, st: StateBatch, device="cuda", ctl=None, inplace=False, args=None) -> StateBatch:
+def step(cb: CodeBank, env, st: StateBatch, device="cuda", ctl=None, inplace=False, args=None,
+         n_shards: int = 1) -> StateBatch:
     """Advance every lane one instruction.
 
     On the CPU this is ``step_plain``. On the card it launches K1; with
     ``inplace`` the batch's own tensors are updated (the fused loop),
     otherwise a copy is stepped and returned. ``ctl`` is the fused loop's
     control word (the kernels return at once once it says stop);
-    ``args`` (kernels.StepArgs of this very batch) saves rebuilding the
-    launch structs on every step of the loop."""
+    ``args`` (kernels.StepArgs of this very batch, built with the same
+    ``n_shards``) saves rebuilding the launch structs on every step of
+    the loop. ``n_shards`` > 1 places forks per lane block (the fused
+    mesh tier, see ``step_plain``)."""
     _build.check_on(device, st.pc, cb.code)
     if st.pc.device.type == "cpu":
-        return step_plain(cb, st)
+        return step_plain(cb, st, n_shards)
     from mythril_tpu_torch.laser.cuda import kernels
 
     if not inplace:
         st = StateBatch(*(x.clone() for x in st))
         args = None
     if args is None:
-        args = kernels.StepArgs(cb, st)
+        args = kernels.StepArgs(cb, st, n_shards)
+    elif args.n_shards != n_shards:
+        raise _build.KernelError(f"StepArgs built for {args.n_shards} shards, step asked for {n_shards}")
     global launches
     launches += 1
     sc = args.sc

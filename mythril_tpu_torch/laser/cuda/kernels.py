@@ -1,4 +1,4 @@
-"""ctypes plumbing shared by the kernel wrappers (K1, K3-K9).
+"""ctypes plumbing shared by the kernel wrappers (K1, K3-K12).
 
 The C side (``csrc/common.cuh``) takes the StateBatch as one ``Planes``
 struct: a pointer and a row size in bytes per plane, in
@@ -138,16 +138,27 @@ _P = ctypes.POINTER
 _V = ctypes.c_void_p
 _I = ctypes.c_int
 _SIGS = {
-    ("step", "mt_step_plan"): [_P(Planes), _P(Bank)] + [_V] * 7 + [_I, _V],
+    ("step", "mt_step_plan"): [_P(Planes), _P(Bank)] + [_V] * 7 + [_I, _I, _V],
     ("step", "mt_step_lanes"): [_P(Planes), _P(Bank)] + [_V] * 6 + [_I, _I, _V],
     ("inloop", "mt_unsat_mask"): [_P(Planes), _P(Pool), _V, _V, _I, _V],
-    ("megakernel", "mt_round_epilogue"): [_P(Planes), _P(Planes)] + [_V] * 7 + [_I, _I, _V],
+    ("megakernel", "mt_round_epilogue"): [_P(Planes), _P(Planes)] + [_V] * 7 + [_I, _I, _I, _V, _I, _V],
     ("solve", "mt_solve"): [_V] * 7 + [_I] * 4 + [ctypes.c_uint32, _V],
     ("transfer", "mt_unpack"): [_V, _V, _I, ctypes.c_int64, _V],
     ("transfer", "mt_pack"): [_V, _V, _I, ctypes.c_int64, _V],
     ("hist", "mt_op_hist"): [_V, _I, _I] + [_V] * 6 + [_I, _V, _V, _I, _V],
     ("slice", "mt_slice_ctl"): [_V, _V, _I, _V, _I, _V],
+    ("mesh", "mt_mesh_plan"): [_P(Planes), _I, _I] + [_V] * 5 + [_I, _V],
+    ("mesh", "mt_mesh_steal"): [_P(Planes), _I] + [_V] * 5 + [_I, _V],
+    ("mesh", "mt_mesh_deal"): [_P(Planes), _P(Planes), _I, _V, _I, _V],
 }
+
+# K4 flags (csrc/megakernel.cuh) and K10 flags (csrc/mesh.cuh)
+EPI_COMMIT = 1
+EPI_COMPACT_ONLY = 2
+MESH_PLAN = 1
+MESH_GATE_SPREAD = 2
+MESH_ACCUM = 4
+MESH_MAX_SHARDS = 64
 
 
 def _fn(lib: str, name: str):
@@ -166,14 +177,19 @@ def _vp(t):
 
 class StepArgs:
     """The structs a K1 launch needs, built once per batch: the fused
-    loop steps one batch in place, so its pointers never change."""
+    loop steps one batch in place, so its pointers never change.
+    ``n_shards`` > 1 ranks forks inside each contiguous lane block (the
+    fused mesh tier)."""
 
-    def __init__(self, cb, st: StateBatch):
+    def __init__(self, cb, st: StateBatch, n_shards: int = 1):
         dev = st.pc.device
+        if n_shards < 1 or st.pc.shape[0] % n_shards:
+            raise _build.KernelError(f"{st.pc.shape[0]} lanes do not split into {n_shards} shards")
         self.sc = Scratch.get(dev, st.pc.shape[0])
         self.pl = planes(st, cb.code.shape[0], cb.code.shape[1])
         self.bk = bank(cb)
         self.stream = _build.stream(dev)
+        self.n_shards = int(n_shards)
 
 
 def launch_step_plan(a: StepArgs, ctl=None) -> None:
@@ -181,7 +197,7 @@ def launch_step_plan(a: StepArgs, ctl=None) -> None:
     sc = a.sc
     rc = _fn("step", "mt_step_plan")(
         ctypes.byref(a.pl), ctypes.byref(a.bk), _vp(sc.tab), _vp(sc.slot), _vp(sc.sha_active),
-        _vp(sc.sha_off), _vp(sc.sha_avail), _vp(sc.sha_len), _vp(ctl), NFIELDS, a.stream)
+        _vp(sc.sha_off), _vp(sc.sha_avail), _vp(sc.sha_len), _vp(ctl), a.n_shards, NFIELDS, a.stream)
     _build.check(rc, "step plan", "step")
 
 
@@ -211,8 +227,12 @@ def launch_unsat(pool, st: StateBatch, ctl=None, out=None) -> torch.Tensor:
     return out
 
 
-def launch_epilogue(cb, st, unsat, acc, pv, ctl, max_rounds, scratch) -> None:
-    """K4 on a CUDA batch: prune/kill/fold/compact in place."""
+def launch_epilogue(cb, st, unsat, acc, pv, ctl, max_rounds, scratch, n_shards=1, flags=EPI_COMMIT,
+                    gate=None) -> None:
+    """K4 on a CUDA batch: prune/kill/fold/compact in place, the
+    compaction stable inside each of ``n_shards`` lane blocks. ``flags``
+    (EPI_COMMIT, EPI_COMPACT_ONLY) and ``gate`` (an int32 word; the
+    launch does nothing while it is 0) serve the fused mesh loop."""
     dev = st.pc.device
     L = st.pc.shape[0]
     sc = Scratch.get(dev, L)
@@ -225,10 +245,14 @@ def launch_epilogue(cb, st, unsat, acc, pv, ctl, max_rounds, scratch) -> None:
     _checked(ctl, "ctl", torch.int32, dev)
     if pv.shape != (n_codes, CL) or ctl.numel() != 4 or acc.numel() != 4:
         raise _build.KernelError("bad pruned_visited / ctl / acc shape")
+    if n_shards < 1 or L % n_shards:
+        raise _build.KernelError(f"{L} lanes do not split into {n_shards} shards")
+    if gate is not None:
+        _checked(gate, "gate", torch.int32, dev)
     rc = _fn("megakernel", "mt_round_epilogue")(
         ctypes.byref(pl), ctypes.byref(ps), _vp(cb.prune_revert), _vp(unsat), _vp(acc),
-        _vp(sc.order), _vp(sc.dying), _vp(pv), _vp(ctl), int(max_rounds), NFIELDS,
-        _build.stream(dev))
+        _vp(sc.order), _vp(sc.dying), _vp(pv), _vp(ctl), int(max_rounds), int(n_shards), int(flags),
+        _vp(gate), NFIELDS, _build.stream(dev))
     _build.check(rc, "round_epilogue", "megakernel")
 
 
@@ -281,3 +305,61 @@ class SliceArgs:
 def launch_slice_ctl(a: SliceArgs) -> None:
     """K9 on a CUDA batch: commit the slice loop's control word."""
     _build.check(_fn("slice", "mt_slice_ctl")(*a.argv), "slice_ctl", "slice")
+
+
+class MeshArgs:
+    """K10/K11 (``csrc/mesh.cu``) on one batch over ``n`` shards: the
+    plane structs and the plan buffers, checked and built once per loop
+    (the fused mesh loop launches both every round on the same batch).
+
+    ``export_`` u8[L] and ``buf_pos`` i32[L] are the plan per lane,
+    ``sh`` i32[3n] the shard columns [occ, alive_c, filled], ``mctl``
+    i32[4] = [do_steal, moved, steal_events, steal_lanes]."""
+
+    def __init__(self, st: StateBatch, n: int, ctl=None):
+        dev = st.pc.device
+        L = st.pc.shape[0]
+        if n < 1 or n > MESH_MAX_SHARDS or L % n:
+            raise _build.KernelError(f"{L} lanes do not split into {n} shards (at most {MESH_MAX_SHARDS})")
+        if ctl is not None:
+            _checked(ctl, "ctl", torch.int32, dev)
+        self.n = int(n)
+        self.pl = planes(st, 1, st.visited.shape[1])
+        self.export_ = torch.zeros(L, dtype=torch.uint8, device=dev)
+        self.buf_pos = torch.zeros(L, dtype=torch.int32, device=dev)
+        self.sh = torch.zeros(3 * n, dtype=torch.int32, device=dev)
+        self.mctl = torch.zeros(4, dtype=torch.int32, device=dev)
+        self.ctl = ctl
+        self.stream = _build.stream(dev)
+
+
+def launch_mesh_plan(a: MeshArgs, flags: int) -> None:
+    """K10: the per-shard counts and, with MESH_PLAN, the steal plan."""
+    rc = _fn("mesh", "mt_mesh_plan")(
+        ctypes.byref(a.pl), a.n, int(flags), _vp(a.export_), _vp(a.buf_pos), _vp(a.sh), _vp(a.mctl),
+        _vp(a.ctl), NFIELDS, a.stream)
+    _build.check(rc, "mesh_plan", "mesh")
+
+
+def launch_mesh_steal(a: MeshArgs, gated: bool) -> None:
+    """K11: move every exported lane's row, kill the exporters; with
+    ``gated`` only when K10's decision (mctl[0]) says steal."""
+    rc = _fn("mesh", "mt_mesh_steal")(
+        ctypes.byref(a.pl), a.n, _vp(a.export_), _vp(a.buf_pos), _vp(a.sh), _vp(a.ctl),
+        _vp(a.mctl if gated else None), NFIELDS, a.stream)
+    _build.check(rc, "mesh_steal", "mesh")
+
+
+def launch_mesh_deal(st: StateBatch, scratch: StateBatch, n: int, order: torch.Tensor) -> None:
+    """K12: deal the running lanes round-robin over ``n`` blocks, every
+    plane's row moved through ``scratch``."""
+    dev = st.pc.device
+    CL = st.visited.shape[1]
+    pl = planes(st, 1, CL)
+    ps = planes(scratch, 1, CL)
+    _checked(order, "order", torch.int32, dev)
+    if order.shape != (st.pc.shape[0],):
+        raise _build.KernelError("the deal order must be int32[L]")
+    rc = _fn("mesh", "mt_mesh_deal")(ctypes.byref(pl), ctypes.byref(ps), int(n), _vp(order), NFIELDS,
+                                      _build.stream(dev))
+    _build.check(rc, "mesh_deal", "mesh")

@@ -28,6 +28,12 @@ counters and OR-ing their visited rows into ``pruned_visited``; the
 scratch batch becomes the state with ``copy_`` on the same stream (a
 device-to-device copy, no sync). Bound on the H100: bytes — the
 compaction reads and writes every plane of the batch once.
+
+``run_fused_mesh`` is the same super-round over a mesh of n lane shards
+(the reference's ``_mesh_kernel`` under ``shard_map``, B12): K1 places
+forks and K4 compacts inside each shard's lane block, and between rounds
+K10 plans the work-steal and K11 moves the lanes (``mesh.py``), gated on
+the device; ``info`` grows to i32[9 + n].
 """
 
 from typing import NamedTuple
@@ -66,13 +72,25 @@ def prune_mask(cb: CodeBank, st: StateBatch) -> torch.Tensor:
     return st.alive & st.outermost & cb.prune_revert & at_revert
 
 
-def round_epilogue_plain(cb: CodeBank, s: StateBatch, unsat, acc, pv):
+def compact_plain(s: StateBatch, n_shards: int = 1) -> StateBatch:
+    """Twin of ``compact_impl`` (megakernel.py:121): a stable sort on the
+    dead flag, inside each of ``n_shards`` contiguous lane blocks (the
+    fused mesh tier compacts per shard under shard_map)."""
+    L = s.pc.shape[0]
+    per = L // n_shards
+    order = torch.argsort(s.alive.to(torch.int32).view(n_shards, per), dim=1, descending=True, stable=True)
+    order = (order + torch.arange(0, L, per, device=order.device)[:, None]).reshape(L)
+    return StateBatch(*(x[order] for x in s))
+
+
+def round_epilogue_plain(cb: CodeBank, s: StateBatch, unsat, acc, pv, n_shards: int = 1):
     """Twin of the reference's per-round tail (megakernel.py:174-196).
 
     ``unsat`` is bool[L] (all False without the in-loop screen), ``acc``
     int32[4] = [pruned_lanes, pruned_steps, pruned_static, inloop_kills]
     and ``pv`` the pruned_visited plane; both are updated in place.
-    Returns the compacted batch."""
+    Returns the compacted batch (compacted per lane block with
+    ``n_shards`` > 1)."""
     dead = prune_mask(cb, s)
     killed = unsat & ~dead
     dying = dead | killed
@@ -89,8 +107,7 @@ def round_epilogue_plain(cb: CodeBank, s: StateBatch, unsat, acc, pv):
         static_pruned=torch.where(dying, 0, s.static_pruned),
         visited=torch.where(dying[:, None], False, s.visited),
     )
-    order = torch.argsort(s.alive.to(torch.int32), descending=True, stable=True)
-    return StateBatch(*(x[order] for x in s))
+    return compact_plain(s, n_shards)
 
 
 def _any_running(s: StateBatch):
@@ -178,14 +195,17 @@ def run_fused_plain(cb, st, max_rounds, steps_per_round, with_solve, pool, with_
     return FusedOut(s, _info(torch.tensor(r, device=dev), acc, s), pv, hist)
 
 
-def round_epilogue(cb, s, unsat, acc, pv, ctl, max_rounds, scratch):
+def round_epilogue(cb, s, unsat, acc, pv, ctl, max_rounds, scratch, n_shards=1, flags=None, gate=None):
     """K4 on the card: prune/kill/fold/compact ``s`` in place, advance
-    ``ctl``. ``unsat`` must be all False when the screen is off."""
+    ``ctl``. ``unsat`` must be all False when the screen is off. The
+    fused mesh loop passes ``n_shards``, defers the commit of ``ctl``
+    (``flags``) and runs a bare compaction gated on its steal word."""
     from mythril_tpu_torch.laser.cuda import kernels
 
     global launches
     launches += 1
-    kernels.launch_epilogue(cb, s, unsat, acc, pv, ctl, int(max_rounds), scratch)
+    flags = kernels.EPI_COMMIT if flags is None else flags
+    kernels.launch_epilogue(cb, s, unsat, acc, pv, ctl, int(max_rounds), scratch, n_shards, flags, gate)
 
 
 def decode_info(info) -> FusedStats:
@@ -193,3 +213,144 @@ def decode_info(info) -> FusedStats:
     with _build.sync_point():
         vals = info.detach().cpu().tolist()
     return FusedStats(*(int(v) for v in vals))
+
+
+# -- the fused MESH super-round (B12) -------------------------------------
+
+
+class MeshFusedStats(NamedTuple):
+    """Host-side decode of the fused-mesh info vector (i32[9 + n]: eight
+    scalars, the per-shard occupancy, then the in-loop kill count)."""
+
+    rounds: int
+    pruned_lanes: int
+    pruned_steps: int
+    pruned_static: int
+    n_alive: int
+    n_running: int
+    steal_events: int
+    steal_lanes: int
+    occupancy: tuple  # per-shard running lanes at loop exit
+    inloop_kills: int
+
+
+def decode_mesh_info(info, n_shards: int) -> MeshFusedStats:
+    """ONE blocking device->host fetch for all fused-mesh scalars."""
+    with _build.sync_point():
+        vals = [int(v) for v in info.detach().cpu().tolist()]
+    return MeshFusedStats(*vals[:8], tuple(vals[8:8 + n_shards]), vals[8 + n_shards])
+
+
+def _mesh_info(r, acc, sev, sln, out: StateBatch, n: int):
+    occ = (out.alive & (out.status == RUNNING)).to(torch.int32).view(n, -1).sum(1).to(torch.int32)
+    n_alive = out.alive.to(torch.int32).sum().to(torch.int32)
+    head = torch.stack([r.to(torch.int32), acc[0], acc[1], acc[2], n_alive, occ.sum().to(torch.int32),
+                        sev.to(torch.int32), sln.to(torch.int32)])
+    return torch.cat([head, occ, acc[3:4]])
+
+
+def run_fused_mesh(
+    mesh,
+    cb: CodeBank,
+    env: Env,
+    st: StateBatch,
+    max_rounds: int,
+    steps_per_round: int = 512,
+    with_stats: bool = False,
+    with_solve: bool = False,
+    pool=None,
+) -> FusedOut:
+    """One fused MESH super-round over ``mesh`` (``mesh.n`` lane blocks of
+    ``st`` on ``mesh.device``), as the reference's ``_mesh_kernel`` runs
+    it under ``shard_map`` (megakernel.py:360-449): each round steps with
+    forks placed per shard (K1), screens (K3) and prunes, kills and
+    compacts per shard (K4); then the work-steal: K10 plans from the
+    per-shard counts and decides ``moved > 0 and spread > 1`` into a
+    control word, K11 moves the lanes, and a bare per-shard compaction
+    (K4) follows, all gated on that word. The loop runs while
+    ``r < max_rounds`` and some lane of any shard runs. ``info`` is
+    i32[9 + n] (``decode_mesh_info``); ``hist`` sums over the shards and
+    ``pruned_visited`` ORs over them, as the reference's psums do.
+
+    On the card ``max_rounds x (steps_per_round x K1 [+ K8] + K3 + K4 +
+    K10 + K11 + K4)`` launches are queued with no host sync; the round's
+    control word is committed after the steal and its compaction, which
+    run under it (the reference's body is round + steal). The caller
+    fetches ``info`` once."""
+    n = mesh.n
+    L = st.pc.shape[0]
+    if L % n != 0:
+        raise ValueError(f"lane count {L} not divisible by mesh size {n}")
+    dev = _build.check_on(mesh.device, st.pc, cb.code)
+    if pool is None:
+        pool = inloop_solve.empty_pool(dev)
+    if dev.type == "cpu":
+        return run_fused_mesh_plain(cb, st, n, max_rounds, steps_per_round, with_solve, pool, with_stats)
+    from mythril_tpu_torch.laser.cuda import kernels, mesh as mesh_lib
+
+    s = StateBatch(*(x.clone() for x in st))
+    pv = torch.zeros(cb.code.shape, dtype=torch.bool, device=dev)
+    acc = torch.zeros(4, dtype=torch.int32, device=dev)
+    ctl = torch.zeros(4, dtype=torch.int32, device=dev)
+    ctl[1] = (_any_running(s) & (max_rounds > 0)).to(torch.int32)
+    scratch = StateBatch(*(torch.empty_like(x) for x in s))
+    unsat = torch.zeros(L, dtype=torch.bool, device=dev)
+    args = kernels.StepArgs(cb, s, n)
+    margs = kernels.MeshArgs(s, n, ctl)
+    hist = torch.zeros(256 if with_stats else 1, dtype=torch.int32, device=dev)
+    if with_stats:
+        snap = engine.snapshot(s)
+        k8 = kernels.HistArgs(cb, snap, s, hist, ctl, refresh=True)
+    for r in range(int(max_rounds)):
+        if with_stats and r:  # the epilogue and the steal moved lanes
+            for x, y in zip(snap, (s.code_id, s.pc, s.steps)):
+                x.copy_(y)
+        for _ in range(steps_per_round):
+            engine.step(cb, env, s, device=dev, ctl=ctl, inplace=True, args=args, n_shards=n)
+            if with_stats:
+                engine.op_hist_update(cb, snap, s, hist, device=dev, args=k8)
+        if with_solve:
+            inloop_solve.unsat_mask(pool, s, device=dev, ctl=ctl, out=unsat)
+        round_epilogue(cb, s, unsat, acc, pv, ctl, max_rounds, scratch, n, flags=0)
+        mesh_lib.steal_round(margs)
+        round_epilogue(cb, s, unsat, acc, pv, ctl, max_rounds, scratch, n,
+                       flags=kernels.EPI_COMMIT | kernels.EPI_COMPACT_ONLY, gate=margs.mctl)
+    info = _mesh_info(ctl[0], acc, margs.mctl[2], margs.mctl[3], s, n)
+    return FusedOut(s, info, pv, hist)
+
+
+def run_fused_mesh_plain(cb, st, n_shards, max_rounds, steps_per_round, with_solve, pool,
+                         with_stats=False) -> FusedOut:
+    """The twin of the whole fused mesh super-round, on any device (it
+    syncs to evaluate the loop condition and the steal gate on the
+    host)."""
+    from mythril_tpu_torch.laser.cuda import mesh as mesh_lib
+
+    dev = st.pc.device
+    L = st.pc.shape[0]
+    n = n_shards
+    pv = torch.zeros(cb.code.shape, dtype=torch.bool, device=dev)
+    acc = torch.zeros(4, dtype=torch.int32, device=dev)
+    hist = torch.zeros(256 if with_stats else 1, dtype=torch.int32, device=dev)
+    r = sev = sln = 0
+    s = st
+    while r < max_rounds and bool(_any_running(s)):
+        for _ in range(steps_per_round):
+            ns = engine.step_plain(cb, s, n)
+            if with_stats:
+                hist = engine.op_hist_update_plain(cb, s, ns, hist)
+            s = ns
+        if with_solve:
+            unsat = inloop_solve.unsat_mask_plain(pool, s)
+        else:
+            unsat = torch.zeros(L, dtype=torch.bool, device=dev)
+        s = round_epilogue_plain(cb, s, unsat, acc, pv, n)
+        plan = mesh_lib.steal_plan_plain(s, n)
+        moved = int(plan.moved)
+        if moved > 0 and int(plan.occ.max()) - int(plan.occ.min()) > 1:
+            s = compact_plain(mesh_lib.steal_apply_plain(s, plan, n), n)
+            sev += 1
+            sln += moved
+        r += 1
+    t = lambda v: torch.tensor(v, dtype=torch.int32, device=dev)  # noqa: E731
+    return FusedOut(s, _mesh_info(t(r), acc, t(sev), t(sln), s, n), pv, hist)

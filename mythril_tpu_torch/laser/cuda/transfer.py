@@ -14,7 +14,10 @@ that cross the host link are the reference's:
 - down: K7 (``pack``) gathers the small planes (``tape_len`` and
   ``alive`` among them) into one device buffer that comes back in one
   copy; after the host has read them, a second K7 gathers the bulky
-  planes sliced to the used tape columns and the alive lane prefix.
+  planes sliced to the used tape columns and the alive lane prefix, or,
+  for a batch off the mesh tiers (compacted per shard), one lane bucket
+  per shard block (``shard_lanes``: each plane is then one segment per
+  block).
 
 Kernels (``csrc/transfer.cu``): one launch per direction; ``blockIdx.y``
 picks the plane, the blocks of that row stride over its bytes, in 4-byte
@@ -330,7 +333,14 @@ def _down_cut(x: torch.Tensor, name: str, t_used, l_used):
     return rows, ship_elems * isz, row_elems * isz
 
 
-def pack_plain(st: StateBatch, fields, t_used=None, l_used=None) -> torch.Tensor:
+def _shard_cut(x: torch.Tensor, shard_lanes) -> torch.Tensor:
+    """The first ``lb`` lanes of each of ``n`` blocks, side by side."""
+    n, lb = shard_lanes
+    rest = tuple(x.shape[1:])
+    return x.reshape((n, x.shape[0] // n) + rest)[:, :lb].reshape((n * lb,) + rest)
+
+
+def pack_plain(st: StateBatch, fields, t_used=None, l_used=None, shard_lanes=None) -> torch.Tensor:
     """Twin of K7: the named planes, sliced, as one u8 tensor."""
     parts = []
     for name in fields:
@@ -339,6 +349,8 @@ def pack_plain(st: StateBatch, fields, t_used=None, l_used=None) -> torch.Tensor
             x = x[:, : _tape_cols(name, t_used)]
         if l_used is not None:
             x = x[:l_used]
+        elif shard_lanes is not None:
+            x = _shard_cut(x, shard_lanes)
         x = x.contiguous()
         parts.append(x.view(torch.uint8).reshape(-1) if x.dtype != torch.bool
                      else x.to(torch.uint8).reshape(-1))
@@ -347,12 +359,15 @@ def pack_plain(st: StateBatch, fields, t_used=None, l_used=None) -> torch.Tensor
     return torch.cat(parts)
 
 
-def pack(st: StateBatch, fields, t_used=None, l_used=None) -> torch.Tensor:
-    """K7 on a card batch (the twin on a CPU batch)."""
+def pack(st: StateBatch, fields, t_used=None, l_used=None, shard_lanes=None) -> torch.Tensor:
+    """K7 on a card batch (the twin on a CPU batch). With ``shard_lanes``
+    = (n, lb) each plane ships the first ``lb`` lanes of each of its
+    ``n`` lane blocks, one segment per block."""
     dev = st.alive.device
     if dev.type == "cpu":
-        return pack_plain(st, fields, t_used, l_used)
-    tab = np.zeros((len(fields), SEG_COLS), np.int64)
+        return pack_plain(st, fields, t_used, l_used, shard_lanes)
+    n, lb = shard_lanes if shard_lanes is not None else (1, None)
+    tab = np.zeros((len(fields) * n, SEG_COLS), np.int64)
     off = 0
     max_bytes = 0
     for i, name in enumerate(fields):
@@ -360,8 +375,12 @@ def pack(st: StateBatch, fields, t_used=None, l_used=None) -> torch.Tensor:
         if not x.is_contiguous():
             raise _build.KernelError(f"pack: plane {name} is not contiguous")
         rows, ship, srow = _down_cut(x, name, t_used, l_used)
-        tab[i] = (x.data_ptr(), off, rows, ship, srow, 0)
-        off += rows * ship
+        if shard_lanes is not None:
+            rows = lb
+        for b in range(n):
+            src = x.data_ptr() + b * (x.shape[0] // n) * srow
+            tab[i * n + b] = (src, off, rows, ship, srow, 0)
+            off += rows * ship
         max_bytes = max(max_bytes, rows * ship)
     out = torch.empty(off, dtype=torch.uint8, device=dev)
     if not fields or off == 0:
@@ -369,7 +388,7 @@ def pack(st: StateBatch, fields, t_used=None, l_used=None) -> torch.Tensor:
     table = torch.from_numpy(tab).pin_memory().to(dev, non_blocking=True)
     global pack_launches
     pack_launches += 1
-    _launch("mt_pack", out.data_ptr(), table.data_ptr(), len(fields), max_bytes, dev)
+    _launch("mt_pack", out.data_ptr(), table.data_ptr(), len(tab), max_bytes, dev)
     return out
 
 
@@ -408,6 +427,22 @@ def down_plan(tape_len: np.ndarray, alive: np.ndarray, cap: int):
     return t_used, None
 
 
+def shard_plan(alive: np.ndarray, n_shards: int):
+    """``(n_shards, lb)`` when every shard block of ``alive`` is a dense
+    prefix (the mesh tiers' per-shard compaction) and a common lane
+    bucket over the fullest block is smaller than a block, else None."""
+    L = int(alive.shape[0])
+    if n_shards < 2 or L % n_shards != 0:
+        return None
+    per = L // n_shards
+    blocks = alive.reshape(n_shards, per)
+    counts = blocks.sum(axis=1)
+    if any(blocks[b, int(c):].any() for b, c in enumerate(counts)):
+        return None
+    lb = _lane_bucket(int(counts.max()), per)
+    return (n_shards, lb) if lb < per else None
+
+
 def batch_to_host(st: StateBatch, n_shards: int = 1) -> StateBatch:
     """Device StateBatch -> StateBatch of numpy planes (the reference's
     dtypes) in two downloads.
@@ -415,13 +450,11 @@ def batch_to_host(st: StateBatch, n_shards: int = 1) -> StateBatch:
     Fetch 1 moves the small bookkeeping planes (including ``tape_len``);
     fetch 2 moves the bulky planes with the term-tape rows sliced to the
     observed maximum and, when compaction left the alive lanes as a dense
-    prefix, only a power-of-two lane bucket over that prefix."""
+    prefix, only a power-of-two lane bucket over that prefix. ``n_shards
+    > 1`` declares a batch off the mesh tiers, compacted per shard: when
+    the whole batch is not a dense prefix, each shard block then ships
+    one common lane bucket (``shard_plan``), as the reference does."""
     faults.fire(faults.TRANSFER_DOWN, context="batch_to_host")
-    if n_shards > 1:
-        raise NotImplementedError(
-            "per-shard download buckets belong to the multi-GPU mesh "
-            "(B11, ROADMAP.md queue A item 12), not ported yet"
-        )
     small = tuple(
         f
         for f in StateBatch._fields
@@ -432,7 +465,12 @@ def batch_to_host(st: StateBatch, n_shards: int = 1) -> StateBatch:
 
     cap = int(st.tape_op.shape[1])
     L = int(st.alive.shape[0])
-    t_used, l_used = down_plan(planes["tape_len"], planes["alive"], cap)
+    alive = planes["alive"]
+    t_used, l_used = down_plan(planes["tape_len"], alive, cap)
+    n_alive = int(alive.sum())
+    shard_lanes = None
+    if not (n_alive < L and not alive[n_alive:].any()):
+        shard_lanes = shard_plan(alive, n_shards)
     big_shapes = []
     for f in _BIG_DOWN:
         shape = tuple(getattr(st, f).shape)
@@ -440,8 +478,10 @@ def batch_to_host(st: StateBatch, n_shards: int = 1) -> StateBatch:
             shape = (shape[0], _tape_cols(f, t_used)) + shape[2:]
         if l_used is not None:
             shape = (l_used,) + shape[1:]
+        elif shard_lanes is not None:
+            shape = (shard_lanes[0] * shard_lanes[1],) + shape[1:]
         big_shapes.append((f, shape, _NP_DTYPES[f]))
-    planes.update(_unpack_host(_fetch(pack(st, _BIG_DOWN, t_used, l_used)), big_shapes))
+    planes.update(_unpack_host(_fetch(pack(st, _BIG_DOWN, t_used, l_used, shard_lanes)), big_shapes))
     # pad sliced tape planes back to capacity (rows at or past tape_len
     # are dead by invariant, so zeros are equivalent)
     for f in _TAPE_PLANES:
@@ -453,13 +493,23 @@ def batch_to_host(st: StateBatch, n_shards: int = 1) -> StateBatch:
             full[:, : planes[f].shape[1]] = planes[f]
             planes[f] = full
     # pad lane-sliced planes back to full height (dead-suffix lanes are
-    # equivalent to zeros for every host consumer)
+    # equivalent to zeros for every host consumer); per-shard buckets go
+    # back to their block's offset
     if l_used is not None:
         for f in _BIG_DOWN:
             if planes[f].shape[0] != L:
                 full = np.zeros((L,) + planes[f].shape[1:], planes[f].dtype)
                 full[: planes[f].shape[0]] = planes[f]
                 planes[f] = full
+    elif shard_lanes is not None:
+        n, lb = shard_lanes
+        per = L // n
+        for f in _BIG_DOWN:
+            got = planes[f]
+            full = np.zeros((L,) + got.shape[1:], got.dtype)
+            for b in range(n):
+                full[b * per : b * per + lb] = got[b * lb : (b + 1) * lb]
+            planes[f] = full
     for name in _SKIP_DOWN:
         planes[name] = np.zeros(tuple(getattr(st, name).shape), _NP_DTYPES[name])
     return StateBatch(**planes)

@@ -1,0 +1,283 @@
+"""The mesh kernels' own logic against the plain twins, on the CPU.
+
+K10 (``mesh_plan``), K11 (``mesh_steal``), K12 (``mesh_deal``) and the
+shard count of K1's plan and K4's compaction are plain C++ over pointers
+in ``mythril_tpu_torch/csrc/{mesh,step,megakernel}.cuh``; compiled as
+host C++ (``csrc/host_emu.cpp``) with loops standing in for the grids,
+they run here on CPU tensors and are held bit for bit against the twins,
+which test_torch_mesh.py and test_torch_mesh_fused.py hold against the
+JAX reference. The emulated fused mesh loop follows ``run_fused_mesh``'s
+card loop launch for launch, control word and steal gate included. On
+the card, chip_smoke.py does the same with the real kernels."""
+
+import ctypes
+import os
+
+import numpy as np
+import pytest
+import torch
+
+import bench
+from mythril_tpu_torch.disassembler.asm import assemble
+from mythril_tpu_torch.laser.cuda import _build, batch, engine, inloop_solve, kernels, megakernel, mesh
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+CFG = batch.BatchConfig(lanes=16, stack_slots=32, memory_bytes=256, calldata_bytes=128, storage_slots=8,
+                        code_len=512, tape_slots=64, path_slots=16, mem_sym_slots=8, ss_ring=16)
+HOST_OPS = (0x00, 0xF3, 0xFD, 0xFF, 0xFE)
+SYM = dict(symbolic_calldata=True, symbolic_storage=True, symbolic_caller=True, symbolic_callvalue=True)
+SOURCES = {
+    "stress": bench.STRESS_SRC,
+    "bectoken": open(os.path.join(ROOT, "bench_contracts", "bectoken.asm")).read(),
+}
+# seeds in lanes 0, 2, 4, 6: a free lane in each of shards 0-3 (of 8)
+SPREAD = torch.tensor([0, 8, 1, 9, 2, 10, 3, 11, 4, 12, 5, 13, 6, 14, 7, 15])
+
+
+@pytest.fixture(scope="module")
+def emu():
+    return _build.host_emulation()
+
+
+def _vp(t):
+    return ctypes.c_void_p(t.data_ptr()) if t is not None else None
+
+
+def _clone(st):
+    return batch.StateBatch(*(x.clone() for x in st))
+
+
+def _assert_same(a, b, where):
+    for name, x, y in zip(batch.StateBatch._fields, a, b):
+        if not torch.equal(x, y):
+            idx = tuple((x != y).nonzero()[0].tolist())
+            raise AssertionError(f"{where}: {name}{list(idx)} kernel={x[idx].item()} twin={y[idx].item()}")
+
+
+def _inputs(name, seed):
+    rng = np.random.default_rng(seed)
+    conc = [dict(calldata=int(rng.integers(1, 1 << 30)).to_bytes(32, "big") + int(rng.integers(0, 4)).to_bytes(32, "big")
+                 + bytes(rng.integers(0, 256, 40, dtype=np.uint8)), caller=0x1000 + i) for i in range(2)]
+    cb = batch.make_code_bank([assemble(SOURCES[name])], CFG.code_len, host_ops=HOST_OPS, freeze_errors=True,
+                              record_storage_events=True, prune_revert=True, device="cpu")
+    st = batch.build_batch(CFG, [dict(SYM), dict(SYM)] + conc, device="cpu")
+    return cb, batch.StateBatch(*(x[SPREAD] for x in st))
+
+
+def _emu_step(lib, cb, st, n):
+    st = _clone(st)
+    sc = kernels.Scratch.get(torch.device("cpu"), st.pc.shape[0])
+    pl = kernels.planes(st, cb.code.shape[0], cb.code.shape[1])
+    bk = kernels.bank(cb)
+    rc = lib.emu_step_sharded(ctypes.byref(pl), ctypes.byref(bk), _vp(sc.tab), _vp(sc.slot), _vp(sc.fork_do),
+                              _vp(sc.fork_dest), _vp(sc.sha_active), _vp(sc.sha_off), _vp(sc.sha_avail),
+                              _vp(sc.sha_len), _vp(sc.sha_digest), n)
+    assert rc == 0
+    return st
+
+
+def _emu_epilogue(lib, cb, s, scratch, unsat, acc, pv, ctl, max_rounds, n, flags, gate=None):
+    sc = kernels.Scratch.get(torch.device("cpu"), s.pc.shape[0])
+    pl = kernels.planes(s, cb.code.shape[0], cb.code.shape[1])
+    psc = kernels.planes(scratch, cb.code.shape[0], cb.code.shape[1])
+    assert lib.emu_epilogue_sharded(ctypes.byref(pl), ctypes.byref(psc), _vp(cb.prune_revert), _vp(unsat),
+                                    _vp(acc), _vp(sc.order), _vp(sc.dying), _vp(pv), _vp(ctl), max_rounds, n,
+                                    flags, _vp(gate)) == 0
+
+
+def _emu_plan(lib, st, n, flags, ctl=None, mctl=None):
+    L = st.pc.shape[0]
+    export = torch.zeros(L, dtype=torch.uint8)
+    buf_pos = torch.zeros(L, dtype=torch.int32)
+    sh = torch.zeros(3 * n, dtype=torch.int32)
+    mctl = torch.zeros(4, dtype=torch.int32) if mctl is None else mctl
+    pl = kernels.planes(st, 1, st.visited.shape[1])
+    assert lib.emu_mesh_plan(ctypes.byref(pl), n, flags, _vp(export), _vp(buf_pos), _vp(sh), _vp(mctl), _vp(ctl)) == 0
+    return export, buf_pos, sh, mctl
+
+
+def _emu_steal(lib, st, n, export, buf_pos, sh, ctl=None, gate=None):
+    pl = kernels.planes(st, 1, st.visited.shape[1])
+    assert lib.emu_mesh_steal(ctypes.byref(pl), n, _vp(export), _vp(buf_pos), _vp(sh), _vp(ctl), _vp(gate)) == 0
+
+
+def _random_batch(seed, L=64, dense=True):
+    """Lanes with random alive/RUNNING flags and tagged rows; with
+    ``dense`` the alive lanes of each 8-lane shard form a prefix."""
+    r = np.random.default_rng(seed)
+    cfg = batch.BatchConfig(lanes=L, stack_slots=4, memory_bytes=32, calldata_bytes=32, storage_slots=2,
+                            code_len=64, tape_slots=8, path_slots=4, mem_sym_slots=2, ss_ring=4)
+    st = batch.empty_batch(cfg, device="cpu")
+    per = L // 8
+    alive = np.zeros(L, bool)
+    if dense:
+        for s in range(8):
+            alive[s * per: s * per + int(r.choice([0, 0, 1, 2, per, per - 1, 3]))] = True
+    else:
+        alive = r.random(L) < 0.4
+    status = np.where(r.random(L) < 0.7, batch.RUNNING, batch.STOPPED).astype(np.int32)
+    return st._replace(
+        alive=torch.as_tensor(alive), status=torch.as_tensor(status),
+        pc=torch.arange(L, dtype=torch.int32) + 100,
+        steps=torch.as_tensor(r.integers(0, 1000, L).astype(np.int32)),
+        static_pruned=torch.as_tensor(r.integers(0, 9, L).astype(np.int32)),
+        stack=torch.as_tensor(r.integers(-(1 << 31), 1 << 31, tuple(st.stack.shape), dtype=np.int64).astype(np.int32)),
+        visited=torch.as_tensor(r.random(tuple(st.visited.shape)) < 0.2),
+    )
+
+
+@pytest.mark.parametrize("n", [2, 8])
+@pytest.mark.parametrize("name", sorted(SOURCES))
+def test_sharded_step_logic_matches_twin(emu, name, n):
+    cb, st = _inputs(name, 5)
+    se = st
+    for i in range(60):
+        st = engine.step_plain(cb, st, n)
+        se = _emu_step(emu, cb, se, n)
+        _assert_same(se, st, f"{name} n={n} step {i}")
+    assert int(st.alive.sum()) > 4
+
+
+@pytest.mark.parametrize("seed", range(6))
+def test_mesh_plan_and_steal_logic_match_twin(emu, seed):
+    st = _random_batch(seed, dense=seed % 3 != 2)
+    plan = mesh.steal_plan_plain(st, 8)
+    export, buf_pos, sh, mctl = _emu_plan(emu, st, 8, kernels.MESH_PLAN)
+    assert torch.equal(export.bool(), plan.export) and torch.equal(buf_pos, plan.buf_pos)
+    assert torch.equal(sh, torch.cat([plan.occ, plan.alive_c, plan.filled]))
+    assert mctl.tolist() == [int(int(plan.moved) > 0), int(plan.moved), 0, 0]
+    # count-only mode is occupancy_impl
+    _e, _b, sh0, _m = _emu_plan(emu, st, 8, 0)
+    assert torch.equal(sh0[:8], mesh.occupancy_impl_plain(st, 8))
+    if int(plan.moved):
+        s = _clone(st)
+        _emu_steal(emu, s, 8, export, buf_pos, sh)
+        _assert_same(s, mesh.steal_apply_plain(st, plan, 8), f"seed {seed} steal")
+
+
+def test_mesh_plan_gate_and_counters(emu):
+    # [1, 1, 0, ...]: moved 0 -> no steal; a spread of 2 -> steal, counted
+    for lanes, go in (([0, 8], 0), ([0, 1, 2, 8], 1)):
+        st = _random_batch(0)
+        alive = torch.zeros(64, dtype=torch.bool)
+        alive[lanes] = True
+        st = st._replace(alive=alive, status=torch.zeros(64, dtype=torch.int32))
+        mctl = torch.tensor([9, 9, 5, 7], dtype=torch.int32)
+        flags = kernels.MESH_PLAN | kernels.MESH_GATE_SPREAD | kernels.MESH_ACCUM
+        export, buf_pos, sh, _ = _emu_plan(emu, st, 8, flags, mctl=mctl)
+        moved = int(mesh.steal_plan_plain(st, 8).moved)
+        assert mctl.tolist() == [go, moved, 5 + go, 7 + go * moved]
+        s = _clone(st)
+        _emu_steal(emu, s, 8, export, buf_pos, sh, gate=mctl)
+        assert torch.equal(s.alive, st.alive) == (not go)
+    # a stopped loop's K10 and K11 touch nothing
+    st = _random_batch(1)
+    mctl = torch.zeros(4, dtype=torch.int32)
+    _e, _b, sh, _ = _emu_plan(emu, st, 8, kernels.MESH_PLAN, ctl=torch.tensor([3, 0, 0, 0], dtype=torch.int32),
+                              mctl=mctl)
+    assert not sh.any() and not mctl.any()
+
+
+@pytest.mark.parametrize("n", [8, 4, 2])
+def test_mesh_deal_logic_matches_twin(emu, n):
+    st = _random_batch(n, dense=False)
+    s = _clone(st)
+    scratch = batch.StateBatch(*(torch.empty_like(x) for x in s))
+    order = torch.zeros(64, dtype=torch.int32)
+    pl = kernels.planes(s, 1, s.visited.shape[1])
+    ps = kernels.planes(scratch, 1, s.visited.shape[1])
+    assert emu.emu_mesh_deal(ctypes.byref(pl), ctypes.byref(ps), n, _vp(order)) == 0
+    assert torch.equal(order.long(), mesh.deal_order_plain(st, n))
+    _assert_same(s, mesh.rebalance_plain(st, n), f"deal n={n}")
+
+
+@pytest.mark.parametrize("n", [2, 8])
+def test_sharded_epilogue_logic_matches_twin(emu, n):
+    cb, st = _inputs("stress", 2)
+    for _ in range(30):
+        st = engine.step_plain(cb, st, n)
+    r = np.random.default_rng(n)
+    L = CFG.lanes
+    status = st.status.clone()
+    status[torch.as_tensor(r.random(L)) < 0.2] = batch.REVERTED
+    st = st._replace(status=status, alive=st.alive | torch.as_tensor(r.random(L) < 0.3),
+                     steps=torch.as_tensor(r.integers(0, 100, L).astype(np.int32)))
+    unsat = torch.as_tensor(r.random(L) < 0.3) & st.alive
+    acc_t = torch.zeros(4, dtype=torch.int32)
+    pv_t = torch.zeros(cb.code.shape, dtype=torch.bool)
+    want = megakernel.round_epilogue_plain(cb, st, unsat, acc_t, pv_t, n)
+    s = _clone(st)
+    scratch = batch.StateBatch(*(torch.empty_like(x) for x in s))
+    acc = torch.zeros(4, dtype=torch.int32)
+    pv = torch.zeros_like(pv_t)
+    ctl = torch.tensor([0, 1, 0, 0], dtype=torch.int32)
+    _emu_epilogue(emu, cb, s, scratch, unsat, acc, pv, ctl, 16, n, 0)
+    _assert_same(s, want, f"epilogue n={n}")
+    assert torch.equal(acc, acc_t) and torch.equal(pv, pv_t)
+    # not committed yet: the mesh loop commits after the steal
+    assert ctl.tolist() == [0, 1, 1, int((want.alive & (want.status == 0)).any())]
+    # a bare compaction (gate open) leaves the counters alone
+    shuffled = batch.StateBatch(*(x[torch.as_tensor(r.permutation(L))] for x in want))
+    s = _clone(shuffled)
+    _emu_epilogue(emu, cb, s, scratch, unsat, acc, pv, ctl, 16, n,
+                  kernels.EPI_COMMIT | kernels.EPI_COMPACT_ONLY, torch.ones(1, dtype=torch.int32))
+    _assert_same(s, megakernel.compact_plain(shuffled, n), f"compaction n={n}")
+    assert torch.equal(acc, acc_t) and torch.equal(pv, pv_t)
+    assert ctl[:2].tolist() == ctl[2:].tolist()
+
+
+def _emu_fused_mesh(lib, cb, st, n, max_rounds, steps_per_round, with_solve, pool, with_stats):
+    """run_fused_mesh's card loop, with the emulated kernels."""
+    L = st.pc.shape[0]
+    s = _clone(st)
+    hist = torch.zeros(256 if with_stats else 1, dtype=torch.int32)
+    scratch = batch.StateBatch(*(torch.empty_like(x) for x in s))
+    ctl = torch.zeros(4, dtype=torch.int32)
+    ctl[1] = int(bool((s.alive & (s.status == 0)).any()) and max_rounds > 0)
+    acc = torch.zeros(4, dtype=torch.int32)
+    pv = torch.zeros(cb.code.shape, dtype=torch.bool)
+    unsat = torch.zeros(L, dtype=torch.bool)
+    mctl = torch.zeros(4, dtype=torch.int32)
+    snap = engine.snapshot(s)
+    for r in range(max_rounds):
+        if r:
+            snap = engine.snapshot(s)
+        for _ in range(steps_per_round):
+            if ctl[1]:
+                for x, y in zip(s, _emu_step(lib, cb, s, n)):
+                    x.copy_(y)
+            if with_stats:
+                CL = cb.code.shape[1]
+                assert lib.emu_op_hist(_vp(cb.code), 1, CL, _vp(snap.code_id), _vp(snap.pc), _vp(snap.steps),
+                                       _vp(s.code_id), _vp(s.pc), _vp(s.steps), L, _vp(hist), _vp(ctl), 1) == 0
+        if with_solve and ctl[1]:
+            pl = kernels.planes(s, 1, cb.code.shape[1])
+            assert lib.emu_unsat(ctypes.byref(pl), ctypes.byref(kernels.pool_struct(pool)), _vp(unsat)) == 0
+        _emu_epilogue(lib, cb, s, scratch, unsat, acc, pv, ctl, max_rounds, n, 0)
+        flags = kernels.MESH_PLAN | kernels.MESH_GATE_SPREAD | kernels.MESH_ACCUM
+        export, buf_pos, sh, _ = _emu_plan(lib, s, n, flags, ctl=ctl, mctl=mctl)
+        _emu_steal(lib, s, n, export, buf_pos, sh, ctl=ctl, gate=mctl)
+        _emu_epilogue(lib, cb, s, scratch, unsat, acc, pv, ctl, max_rounds, n,
+                      kernels.EPI_COMMIT | kernels.EPI_COMPACT_ONLY, mctl)
+    return s, megakernel._mesh_info(ctl[0], acc, mctl[2], mctl[3], s, n), pv, hist
+
+
+@pytest.mark.parametrize("name", ["spin", "stress"])
+def test_fused_mesh_loop_logic_matches_twin(emu, name):
+    if name == "spin":  # eight spinning lanes in shards 0-1: steals fire
+        cb = batch.make_code_bank([assemble("here:\nJUMPDEST\nPUSH1 :here\nJUMP")], CFG.code_len, device="cpu")
+        st = batch.build_batch(CFG, [dict(calldata=b"", gas=10_000_000)] * 4, device="cpu")
+        rounds, steps = 3, 16
+    else:
+        cb, st = _inputs("stress", 9)
+        rounds, steps = 4, 24
+    pool = inloop_solve.empty_pool("cpu")
+    want = megakernel.run_fused_mesh(mesh.make_mesh(8, device="cpu"), cb, None, st, max_rounds=rounds,
+                                     steps_per_round=steps, with_stats=True, with_solve=True)
+    s, info, pv, hist = _emu_fused_mesh(emu, cb, st, 8, rounds, steps, True, pool, True)
+    _assert_same(s, want.st, f"{name} fused mesh")
+    assert info.tolist() == want.info.tolist()
+    assert torch.equal(pv, want.pruned_visited) and torch.equal(hist, want.hist)
+    stats = megakernel.decode_mesh_info(want.info, 8)
+    if name == "spin":
+        assert stats.steal_events == 1 and stats.steal_lanes == 2 and stats.rounds == 3
