@@ -13,15 +13,21 @@ phases that each print one JSON line:
 2. kernels against their plain PyTorch twins on the card, bit for bit
    (tolerance 0, everything is integer): K2 keccak on the edge lengths
    and on all-empty batches, K1 for 64 steps on full-width becstress
-   and BECToken batches (every plane after every step), K3 on a seeded
+   and BECToken batches (every plane after every step), then one K1
+   launch of 64 steps against the twin's 64 steps ("K1 run"), with 1
+   and 8 lane blocks, K3 on a seeded
    random pool, K4 on a batch with mixed alive/REVERT/killed lanes;
 3. the main path at DEFAULT_BATCH_CFG (512 lanes, code_len 8192):
    run_fused(max_rounds=16, steps_per_round=256, with_solve=True) on
    becstress, BECToken and the in-loop demo, with every launch counter
-   zeroed just before and read just after, no host sync allowed inside
-   the super-round (torch's sync debug mode raises on one), and each
-   result compared with the twin's fused run on the same inputs;
-4. per-kernel times on the card against the twin's and a bound;
+   zeroed just before and read just after (one K1 launch of 256 steps
+   per round, no K2 launch: K1 hashes SHA3 itself), no host sync allowed
+   inside the super-round (torch's sync debug mode raises on one), and
+   each result compared with the twin's fused run on the same inputs;
+4. per-kernel times on the card against the twin's and a bound; K1 per
+   step and per launch of a round's 256 steps, its floor, and its
+   registers and spills, each on a line of its own; an oversized
+   cooperative K1 launch must raise KernelError;
 5. K6 unpack / K7 pack against their twins at DEFAULT_BATCH_CFG (full,
    tape-sliced, groups-absent and alive-prefix batches) and the
    host -> card -> host round trip of every plane;
@@ -40,7 +46,7 @@ phases that each print one JSON line:
    per-plane copy_ sequence;
 9. K8 (the retired-opcode histogram) against its twin after each of 64
    forking steps of a full-width BECToken batch, and the sync slice loop
-   (K9 + K1/K2 + K8: engine.run_with_stats, and engine.run) against the
+   (K9 + K1 + K8: engine.run_with_stats, and engine.run) against the
    twin's loop for one 512-step slice at DEFAULT_BATCH_CFG, every plane
    plus the histogram; run_fused(with_stats=True) against the twin on
    becstress, and the super-round's wall with stats on and off;
@@ -158,6 +164,33 @@ def emit(obj):
     print(json.dumps(obj), flush=True)
 
 
+class HandoffProbe:
+    """Where an analysis handed its frontier to the batch backend: at the
+    first call of ``backend.exec_batch`` (the engagement gate,
+    ``device_engage_after_s`` after the strategy was made, opened), the
+    states the host had explored and the seconds since ``start``. The
+    frontier at that point decides what the device explores: on BECToken
+    a handoff before the host has run batchTransfer's loop gives that
+    loop to the device, where 101@104 is not found (ROADMAP section C)."""
+
+    def __init__(self):
+        from mythril_tpu_torch.laser.cuda import backend
+
+        self.backend, self.orig, self.t0, self.at = backend, backend.exec_batch, None, None
+
+    def start(self):
+        self.t0, self.at = time.time(), None
+        self.backend.exec_batch = self.exec_batch
+
+    def stop(self):
+        self.backend.exec_batch = self.orig
+
+    def exec_batch(self, laser, *args, **kwargs):
+        if self.at is None:
+            self.at = {"states": laser.total_states, "s": round(time.time() - self.t0, 3)}
+        return self.orig(laser, *args, **kwargs)
+
+
 def smi_line():
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -212,7 +245,7 @@ def run(dev, cfg, smi, k1_steps=64, rounds=16, steps_per_round=256):
     import torch
 
     from mythril_tpu_torch.disassembler.asm import assemble
-    from mythril_tpu_torch.laser.cuda import batch, convert, engine, inloop_solve, keccak, kernels, megakernel
+    from mythril_tpu_torch.laser.cuda import _build, batch, convert, engine, inloop_solve, keccak, kernels, megakernel
     from mythril_tpu_torch.support.keccak import keccak256
 
     on_card = dev.type == "cuda"
@@ -239,6 +272,15 @@ def run(dev, cfg, smi, k1_steps=64, rounds=16, steps_per_round=256):
         return None
 
     max_err = {"K1": 0, "K2": 0, "K3": 0, "K4": 0}
+
+    def k1_launch(cb, st, n_steps, n_shards):
+        """One K1 launch of n_steps on a copy of st (the twin's steps in
+        the rehearsal); not counted."""
+        if not on_card:
+            return engine.step_n(cb, None, st, n_steps, device=dev, n_shards=n_shards)
+        s = batch.StateBatch(*(x.clone() for x in st))
+        kernels.launch_step_run(kernels.StepArgs(cb, s, n_shards), n_steps)
+        return s
 
     # ---- 2. kernels against twins ---------------------------------------
     rng = np.random.default_rng(20261017)
@@ -285,7 +327,7 @@ def run(dev, cfg, smi, k1_steps=64, rounds=16, steps_per_round=256):
     for name in ("becstress", "bectoken"):
         cb = bank_for(contracts[name])
         n_cmp = min(32, cfg.lanes // 8)
-        st_k = batch.build_batch(cfg, seeds(n_cmp, n_cmp), device=dev)
+        st_in = st_k = batch.build_batch(cfg, seeds(n_cmp, n_cmp), device=dev)
         st_t = st_k
         for i in range(k1_steps):
             st_k = engine.step(cb, None, st_k, device=dev)
@@ -299,6 +341,23 @@ def run(dev, cfg, smi, k1_steps=64, rounds=16, steps_per_round=256):
               "alive": int(st_k.alive.sum()), "running": int((st_k.alive & (st_k.status == 0)).sum()), "ok": True})
         if name == "bectoken":
             k1_state = (cb, st_k)
+        # one launch of k1_steps steps against as many twin steps, with 1
+        # and 8 lane blocks
+        for n in (1, 8):
+            want = st_t
+            if n != 1:
+                want = st_in
+                for _ in range(k1_steps):
+                    want = engine.step_plain(cb, want, n)
+            got = k1_launch(cb, st_in, k1_steps, n)
+            same, err = planes_equal(got, want)
+            max_err["K1"] = max(max_err["K1"], err)
+            if not same:
+                raise AssertionError(f"K1 run ({k1_steps} steps, n_shards={n}) differs from the twin on {name}: "
+                                     f"{first_diff(got, want)}")
+            sync()
+            emit({"phase": "compare", "kernel": "K1 run", "contract": name, "steps": k1_steps, "launches": 1,
+                  "shards": n, "lanes": cfg.lanes, "alive": int(want.alive.sum()), "max_abs_err": err, "ok": True})
 
     def random_pool_case(seed):
         r = np.random.default_rng(seed)
@@ -388,7 +447,7 @@ def run(dev, cfg, smi, k1_steps=64, rounds=16, steps_per_round=256):
         inputs[name] = (bank_for(code), batch.build_batch(cfg, specs, device=dev))
     pool0 = inloop_solve.empty_pool(dev)
     sync()
-    engine.launches = keccak.launches = inloop_solve.launches = megakernel.launches = 0
+    engine.launches = engine.steps_run = keccak.launches = inloop_solve.launches = megakernel.launches = 0
     results = {}
     for name, (cb, st) in inputs.items():
         t0 = time.perf_counter()
@@ -404,8 +463,8 @@ def run(dev, cfg, smi, k1_steps=64, rounds=16, steps_per_round=256):
         stats = megakernel.decode_info(out.info)  # the one blocking fetch
         t1 = time.perf_counter()
         results[name] = (out, stats, (t1 - t0) * 1e3, (t_enq - t0) * 1e3)
-    counts = {"K1": engine.launches, "K2": keccak.launches, "K3": inloop_solve.launches,
-              "K4": megakernel.launches}
+    counts = {"K1": engine.launches, "K1_steps": engine.steps_run, "K2": keccak.launches,
+              "K3": inloop_solve.launches, "K4": megakernel.launches}
     for name, (out, stats, wall, enq) in results.items():
         retired = int(out.st.steps.sum()) + stats.pruned_steps
         forked = stats.n_alive + stats.pruned_lanes + stats.inloop_kills - n_seeds
@@ -416,8 +475,13 @@ def run(dev, cfg, smi, k1_steps=64, rounds=16, steps_per_round=256):
             raise AssertionError(f"{name}: no fork filled a lane beyond the {n_seeds} seeds")
     if results["inloop_demo"][1].inloop_kills < 1:
         raise AssertionError("the in-loop demo reported no in-loop kill")
-    if on_card and min(counts.values()) <= 0:
+    if on_card and min(counts[k] for k in ("K1", "K3", "K4")) <= 0:
         raise AssertionError(f"a kernel of the main path never launched: {counts}")
+    # one K1 launch per round runs the round's steps; SHA3 is hashed inside K1
+    n_runs = len(inputs)
+    if on_card and (counts["K1"] != n_runs * rounds or counts["K1_steps"] != n_runs * rounds * steps_per_round
+                    or counts["K2"] != 0):
+        raise AssertionError(f"the main path did not run one K1 launch per round and no K2: {counts}")
     for name, (cb, st) in inputs.items():
         out_k = results[name][0]
         out_t = megakernel.run_fused_plain(cb, st, rounds, steps_per_round, True, pool0)
@@ -462,19 +526,85 @@ def run(dev, cfg, smi, k1_steps=64, rounds=16, steps_per_round=256):
         return sum(x[0].numel() * x.element_size() for x in st)
 
     cb1, st1 = k1_state
+
     def clone1():
         s = batch.StateBatch(*(x.clone() for x in st1))
         return s, (kernels.StepArgs(cb1, s) if on_card else None)
 
+    def k1_bytes(before, after):
+        # per running lane: fetch byte, 7 scalar planes read, top-3 words and
+        # tags read, 6 scalars + one word and tag written, the visited byte;
+        # each child needs its whole row written
+        running = int((before.alive & (before.status == 0)).sum())
+        children = int(after.alive.sum() - before.alive.sum())
+        return running * (1 + 7 * 4 + 3 * 68 + 6 * 4 + 68 + 1) + children * row_bytes(before), running, children
+
     ms_k1 = time_ms(lambda a: engine.step(cb1, None, a[0], device=dev, inplace=True, args=a[1]), clone1)
     plain_k1 = time_ms(lambda a: engine.step_plain(cb1, a[0]), clone1, reps=5)
     after = engine.step(cb1, None, st1, device=dev)
-    running = int((st1.alive & (st1.status == 0)).sum())
-    children = int(after.alive.sum() - st1.alive.sum())
-    # per running lane: fetch byte, 7 scalar planes read, top-3 words and
-    # tags read, 6 scalars + one word and tag written, the visited byte;
-    # each child needs its whole row written
-    bytes_k1 = running * (1 + 7 * 4 + 3 * 68 + 6 * 4 + 68 + 1) + children * row_bytes(st1)
+    bytes_k1, running, children = k1_bytes(st1, after)
+    # one launch of a round's steps on the same state; its bound sums the
+    # bytes of each of its steps, taken one step at a time
+    run_steps = steps_per_round
+    ms_k1_run = time_ms(lambda a: engine.step_n(cb1, None, a[0], run_steps, device=dev, inplace=True, args=a[1]),
+                        clone1, reps=10)
+    bytes_run, s_run, live_steps = 0, st1, 0
+    for _ in range(run_steps):
+        nxt = engine.step(cb1, None, s_run, device=dev)
+        b, r, _c = k1_bytes(s_run, nxt)
+        if not r:
+            break
+        bytes_run, s_run, live_steps = bytes_run + b, nxt, live_steps + 1
+    # the twin over the same steps, once (it is warm from the compares)
+    sync()
+    t0 = time.perf_counter()
+    s_plain = st1
+    for _ in range(run_steps):
+        s_plain = engine.step_plain(cb1, s_plain)
+    sync()
+    plain_k1_run = (time.perf_counter() - t0) * 1e3
+    emit({"phase": "timing", "what": "K1 one step and one launch of a round", "state": "bectoken after "
+          f"{k1_steps} steps", "running": running, "children": children, "ms_one_step": round(ms_k1, 6),
+          "plain_ms_one_step": round(plain_k1, 6), "bound_ms_one_step": round(bytes_k1 / HBM_BYTES_PER_S * 1e3, 9),
+          "steps_per_launch": run_steps, "steps_with_a_running_lane": live_steps, "ms_launch": round(ms_k1_run, 6),
+          "plain_ms_launch": round(plain_k1_run, 3), "bound_ms_launch": round(bytes_run / HBM_BYTES_PER_S * 1e3, 9),
+          "gpu": smi})
+    # the floor of a step: every lane spinning on JUMPDEST, PUSH1, JUMP
+    # (no fork, no memory), so a step is little more than the rank and
+    # the two grid barriers
+    cb_spin = bank_for(assemble(LOOP_SRC))
+    st_spin = batch.build_batch(cfg, [dict(calldata=b"", gas=10_000_000)] * cfg.lanes, device=dev)
+
+    def spin_prep():
+        s = batch.StateBatch(*(x.clone() for x in st_spin))
+        return s, (kernels.StepArgs(cb_spin, s) if on_card else None)
+
+    spin = time_ms(lambda a: engine.step_n(cb_spin, None, a[0], run_steps, device=dev, inplace=True, args=a[1]),
+                   spin_prep, reps=10)
+    emit({"phase": "timing", "what": "K1 floor", "lanes_running": cfg.lanes, "steps": run_steps,
+          "ms_launch": round(spin, 6), "us_per_step": round(spin * 1e3 / run_steps, 3), "gpu": smi})
+    if on_card:
+        log = os.path.join(_build.BUILD_DIR, "step.log")
+        ptxas = [ln.strip() for ln in open(log) if "registers" in ln or "spill" in ln] if os.path.exists(log) else []
+        info = kernels.step_run_info(dev)
+        # a cooperative launch of one block more than the card holds at
+        # once is refused by the runtime; the wrapper must raise, and the
+        # next launch must run as before
+        s_ref, a_ref = clone1()
+        refused = None
+        try:
+            kernels.launch_step_run(a_ref, 1, None, blocks=info["blocks_per_sm"] * info["sms"] + 1)
+        except _build.KernelError as e:
+            refused = str(e)
+        kernels.launch_step_run(a_ref, 1)
+        sync()
+        same, _err = planes_equal(s_ref, after)
+        emit({"phase": "timing", "what": "K1 registers and spills", **info, "ptxas": ptxas,
+              "refused_cooperative_launch": refused, "next_launch_exact": same})
+        if refused is None or "cooperative" not in refused.lower():
+            raise AssertionError(f"an oversized cooperative K1 launch did not raise its refusal: {refused}")
+        if not same:
+            raise AssertionError("K1 after a refused launch differs from the step before it")
 
     L = cfg.lanes
     off = torch.zeros(L, dtype=torch.int32, device=dev)
@@ -520,8 +650,13 @@ def run(dev, cfg, smi, k1_steps=64, rounds=16, steps_per_round=256):
                 "bound_by": "bytes", "library_ms": None}
 
     kernels_line = {"kernels": [
-        entry("K1", "K1 step", "mythril_tpu_torch/csrc/step.cu", "mythril_tpu/laser/tpu/engine.py:118",
-              ms_k1, plain_k1, bytes_k1),
+        # a main-path launch runs a round's steps: its time, bound and twin;
+        # one step's beside them. "steps" sums the steps the launches asked
+        # for: a launch ends early once no lane runs
+        dict(entry("K1", "K1 step", "mythril_tpu_torch/csrc/step.cu", "mythril_tpu/laser/tpu/engine.py:118",
+                   ms_k1_run, plain_k1_run, bytes_run), steps=counts["K1_steps"], steps_per_launch=run_steps,
+             ms_one_step=round(ms_k1, 6), plain_ms_one_step=round(plain_k1, 6),
+             bound_ms_one_step=round(bytes_k1 / HBM_BYTES_PER_S * 1e3, 9)),
         entry("K2", "K2 keccak256_batch", "mythril_tpu_torch/csrc/keccak.cu",
               "mythril_tpu/laser/tpu/keccak_tpu.py:126", ms_k2, plain_k2, bytes_k2),
         entry("K3", "K3 unsat_mask", "mythril_tpu_torch/csrc/inloop.cu",
@@ -707,8 +842,8 @@ def run_host_half(dev, cfg, smi, budgets=(("becstress", 2, 60), ("bectoken", 3, 
     from mythril_tpu_torch.obs import catalog as cat
     from mythril_tpu_torch.robustness import retry
 
-    counters = {"K1": (engine, "launches"), "K2": (keccak, "launches"), "K3": (inloop_solve, "launches"),
-                "K4": (megakernel, "launches"), "K5": (solver, "launches"),
+    counters = {"K1": (engine, "launches"), "K1_steps": (engine, "steps_run"), "K2": (keccak, "launches"),
+                "K3": (inloop_solve, "launches"), "K4": (megakernel, "launches"), "K5": (solver, "launches"),
                 "K6": (transfer, "unpack_launches"), "K7": (transfer, "pack_launches")}
 
     def zero_counts():
@@ -791,6 +926,7 @@ def run_host_half(dev, cfg, smi, budgets=(("becstress", 2, 60), ("bectoken", 3, 
     transfer.batch_to_device, transfer.batch_to_host = up_rec, down_rec
     solver.compile_cnf_batch, backend._do_warmup = cnf_rec, warm_rec
     k5_from_sets = 0
+    handoff = HandoffProbe()
     try:
         for name, tx, budget in budgets:
             runtime = contracts[name]
@@ -813,10 +949,14 @@ def run_host_half(dev, cfg, smi, budgets=(("becstress", 2, 60), ("bectoken", 3, 
                 zero_counts()
                 capturing[0] = True
                 t1 = time.time()
-                sym = SymExecWrapper(EVMContract(code=runtime.hex(), creation_code=creation, name=name),
-                                     address=0x1234, strategy="cuda-batch", execution_timeout=budget,
-                                     transaction_count=tx, max_depth=128)
-                issues = sorted({(i.swc_id, i.address) for i in fire_lasers(sym)})
+                handoff.start()
+                try:
+                    sym = SymExecWrapper(EVMContract(code=runtime.hex(), creation_code=creation, name=name),
+                                         address=0x1234, strategy="cuda-batch", execution_timeout=budget,
+                                         transaction_count=tx, max_depth=128)
+                    issues = sorted({(i.swc_id, i.address) for i in fire_lasers(sym)})
+                finally:
+                    handoff.stop()
                 sync()
                 wall = time.time() - t1
                 capturing[0] = False
@@ -834,7 +974,7 @@ def run_host_half(dev, cfg, smi, budgets=(("becstress", 2, 60), ("bectoken", 3, 
             for k in e2e_counts:
                 e2e_counts[k] += counts[k]
             emit({"phase": "e2e", "contract": name, "tx": tx, "budget_s": budget,
-                  "device_engage_after_s": run_cfg.device_engage_after_s, "issues": issues,
+                  "device_engage_after_s": run_cfg.device_engage_after_s, "handoff": handoff.at, "issues": issues,
                   "expected": EXPECTED_ISSUES[name], "wall_s": round(wall, 3),
                   "strategy_warmup_s": round(warm["s"], 3),
                   "device_rounds": strat.device_rounds, "fused_rounds": strat.fused_rounds,
@@ -865,7 +1005,7 @@ def run_host_half(dev, cfg, smi, budgets=(("becstress", 2, 60), ("bectoken", 3, 
         solver.compile_cnf_batch, backend._do_warmup = orig[5:]
         backend.DEFAULT_BATCH_CFG = cfg
     if on_card:
-        never = [k for k, v in e2e_counts.items() if v <= 0]
+        never = [k for k, v in e2e_counts.items() if v <= 0 and k != "K2"]  # K1 hashes SHA3 itself
         if never:
             raise AssertionError(f"kernels the main path never launched: {never}")
     blast = None
@@ -1024,9 +1164,10 @@ import json, runpy, sys
 from mythril_tpu_torch.interfaces import cli
 from mythril_tpu_torch.laser.cuda import engine, inloop_solve, keccak, megakernel, solver, transfer
 from mythril_tpu_torch.laser.evm.iprof import InstructionProfiler
-counters = {"K1": (engine, "launches"), "K2": (keccak, "launches"), "K3": (inloop_solve, "launches"),
-            "K4": (megakernel, "launches"), "K5": (solver, "launches"), "K6": (transfer, "unpack_launches"),
-            "K7": (transfer, "pack_launches"), "K8": (engine, "hist_launches"), "K9": (engine, "slice_launches")}
+counters = {"K1": (engine, "launches"), "K1_steps": (engine, "steps_run"), "K2": (keccak, "launches"),
+            "K3": (inloop_solve, "launches"), "K4": (megakernel, "launches"), "K5": (solver, "launches"),
+            "K6": (transfer, "unpack_launches"), "K7": (transfer, "pack_launches"), "K8": (engine, "hist_launches"),
+            "K9": (engine, "slice_launches")}
 out_path = sys.argv[1]
 sys.argv = ["mythril_tpu_torch"] + sys.argv[2:]
 profile = {"counts": {}, "rounds": 0, "wall_s": 0.0}
@@ -1225,13 +1366,13 @@ def run_stats_and_sync(dev, cfg, smi, cli_budget=60, sync_budget=("bectoken", 3,
         raise AssertionError(f"CLI: issues {cli_issues}, expected {EXPECTED_ISSUES['becstress']}")
     if not profile["counts"] or "Device rounds:" not in proc.stderr:
         raise AssertionError("the CLI reported no device opcode profile")
-    missing = [k for k, v in cli_launches.items() if v <= 0 and k != "K5"]
+    missing = [k for k, v in cli_launches.items() if v <= 0 and k not in ("K2", "K5")]
     if on_card and missing:
         raise AssertionError(f"kernels the CLI path never launched: {missing}")
 
     # ---- 11. the sync slice loop end to end ----------------------------------
-    counters = {"K1": (engine, "launches"), "K2": (keccak, "launches"), "K3": (inloop_solve, "launches"),
-                "K4": (megakernel, "launches"), "K5": (solver, "launches"),
+    counters = {"K1": (engine, "launches"), "K1_steps": (engine, "steps_run"), "K2": (keccak, "launches"),
+                "K3": (inloop_solve, "launches"), "K4": (megakernel, "launches"), "K5": (solver, "launches"),
                 "K6": (transfer, "unpack_launches"), "K7": (transfer, "pack_launches"),
                 "K8": (engine, "hist_launches"), "K9": (engine, "slice_launches")}
     name, tx, budget = sync_budget
@@ -1250,10 +1391,15 @@ def run_stats_and_sync(dev, cfg, smi, cli_budget=60, sync_budget=("bectoken", 3,
         for mod, attr in counters.values():
             setattr(mod, attr, 0)
         t1 = time.time()
-        sym = SymExecWrapper(EVMContract(code=runtime.hex(), creation_code=creation, name=name),
-                             address=0x1234, strategy="cuda-batch", execution_timeout=budget,
-                             transaction_count=tx, max_depth=128)
-        issues = sorted({(i.swc_id, i.address) for i in fire_lasers(sym)})
+        handoff = HandoffProbe()
+        handoff.start()
+        try:
+            sym = SymExecWrapper(EVMContract(code=runtime.hex(), creation_code=creation, name=name),
+                                 address=0x1234, strategy="cuda-batch", execution_timeout=budget,
+                                 transaction_count=tx, max_depth=128)
+            issues = sorted({(i.swc_id, i.address) for i in fire_lasers(sym)})
+        finally:
+            handoff.stop()
         sync()
         wall = time.time() - t1
         sync_launches = {k: getattr(m, a) for k, (m, a) in counters.items()}
@@ -1265,7 +1411,8 @@ def run_stats_and_sync(dev, cfg, smi, cli_budget=60, sync_budget=("bectoken", 3,
     strat = backend.find_tpu_strategy(sym.laser.strategy)
     slices = cat.DEVICE_SLICES_TOTAL.value() - slices0
     degraded = cat.DEGRADED_ROUNDS_TOTAL.value() - degraded0
-    emit({"phase": "e2e_sync", "contract": name, "tx": tx, "budget_s": budget, "issues": issues,
+    emit({"phase": "e2e_sync", "contract": name, "tx": tx, "budget_s": budget, "handoff": handoff.at,
+          "issues": issues,
           "expected": EXPECTED_ISSUES[name], "wall_s": round(wall, 3), "device_rounds": strat.device_rounds,
           "device_slices": slices, "fused_rounds": strat.fused_rounds,
           "device_steps_retired": strat.device_steps_retired, "device_wall_s": round(strat.device_wall_s, 3),
@@ -1278,7 +1425,7 @@ def run_stats_and_sync(dev, cfg, smi, cli_budget=60, sync_budget=("bectoken", 3,
         raise AssertionError(f"{name}: the sync slice loop ran no device slice")
     if strat.degraded_rounds or degraded or retry.BREAKER.state() != "closed":
         raise AssertionError(f"{name}: a round degraded under the sync slice loop")
-    missing = [k for k in ("K1", "K2", "K6", "K7", "K9") if sync_launches[k] <= 0]
+    missing = [k for k in ("K1", "K6", "K7", "K9") if sync_launches[k] <= 0]
     if on_card and missing:
         raise AssertionError(f"kernels the sync path never launched: {missing}")
 
@@ -1508,8 +1655,11 @@ def run_mesh(dev, cfg, smi, rounds=4, steps_per_round=256, n_shards=8, e2e=("bec
         if not ok:
             raise AssertionError(f"{name}: the fused mesh super-round differs from the twin: {where} "
                                  f"info {out.info.tolist()} vs {ot.info.tolist()}")
-        if on_card and min(counts[k] for k in ("K1", "K2", "K3", "K4", "K10", "K11")) <= 0:
+        if on_card and min(counts[k] for k in ("K1", "K3", "K4", "K10", "K11")) <= 0:
             raise AssertionError(f"{name}: a kernel of the fused mesh loop never launched: {counts}")
+        if on_card and not with_stats and (counts["K1"] != rounds or counts["K2"]
+                                           or counts["K1_steps"] != rounds * steps_per_round):
+            raise AssertionError(f"{name}: the fused mesh loop did not run one K1 launch per round: {counts}")
     fused_mesh_counts = {k: sum(r[3][k] for r in results.values()) for k in read_counts()}
 
     # ---- 12c. one sync mesh round (the deal) against the twin's --------------
@@ -1685,8 +1835,8 @@ def mesh_counters():
     """(zero_counts, read_counts) over the launch counts of K1-K12."""
     from mythril_tpu_torch.laser.cuda import engine, inloop_solve, keccak, megakernel, mesh, solver, transfer
 
-    counters = {"K1": (engine, "launches"), "K2": (keccak, "launches"), "K3": (inloop_solve, "launches"),
-                "K4": (megakernel, "launches"), "K5": (solver, "launches"),
+    counters = {"K1": (engine, "launches"), "K1_steps": (engine, "steps_run"), "K2": (keccak, "launches"),
+                "K3": (inloop_solve, "launches"), "K4": (megakernel, "launches"), "K5": (solver, "launches"),
                 "K6": (transfer, "unpack_launches"), "K7": (transfer, "pack_launches"),
                 "K8": (engine, "hist_launches"), "K9": (engine, "slice_launches"),
                 "K10": (mesh, "plan_launches"), "K11": (mesh, "steal_launches"), "K12": (mesh, "deal_launches")}
@@ -1765,6 +1915,7 @@ def run_mesh_e2e(dev, cfg, smi, n=8, e2e=("bectoken", 3, 120)):
     os.environ["MYTHRIL_TPU_MESH"] = "on"
     mesh.n_devices = lambda device="cuda": n  # n lane shards of the one card
     transfer.batch_to_device, backend._do_warmup = up_rec, warm_rec
+    handoff = HandoffProbe()
     run_cfg = cfg
     try:
         for attempt in range(2):
@@ -1778,10 +1929,14 @@ def run_mesh_e2e(dev, cfg, smi, n=8, e2e=("bectoken", 3, 120)):
             sync()
             zero_counts()
             t1[0] = time.time()
-            sym = SymExecWrapper(EVMContract(code=runtime.hex(), creation_code=creation, name=name),
-                                 address=0x1234, strategy="cuda-batch", execution_timeout=budget,
-                                 transaction_count=tx, max_depth=128)
-            issues = sorted({(i.swc_id, i.address) for i in fire_lasers(sym)})
+            handoff.start()
+            try:
+                sym = SymExecWrapper(EVMContract(code=runtime.hex(), creation_code=creation, name=name),
+                                     address=0x1234, strategy="cuda-batch", execution_timeout=budget,
+                                     transaction_count=tx, max_depth=128)
+                issues = sorted({(i.swc_id, i.address) for i in fire_lasers(sym)})
+            finally:
+                handoff.stop()
             sync()
             wall = time.time() - t1[0]
             e2e_counts = read_counts()
@@ -1803,7 +1958,7 @@ def run_mesh_e2e(dev, cfg, smi, n=8, e2e=("bectoken", 3, 120)):
     phases = {ph: [cat.ROUND_PHASE_S.percentile(50, ph), cat.ROUND_PHASE_S.count(ph)]
               for ph in ("host_exec", "solve", "pack", "lift", "triage", "device_round")}
     emit({"phase": "e2e_mesh", "contract": name, "tx": tx, "budget_s": budget, "shards": n,
-          "device_engage_after_s": run_cfg.device_engage_after_s, "issues": issues,
+          "device_engage_after_s": run_cfg.device_engage_after_s, "handoff": handoff.at, "issues": issues,
           "expected": EXPECTED_ISSUES[name], "wall_s": round(wall, 3),
           "strategy_warmup_s": round(warm_s[0], 3),
           "first_upload_s": round(uploads[0], 3) if uploads else None,

@@ -60,12 +60,23 @@ enum Table { TB_POPS, TB_PUSHES, TB_GAS, TB_GAS_MAX, TB_INVALID, TB_TRAP,
 enum Status { RUNNING = 0, STOPPED = 1, RETURNED = 2, REVERTED = 3, ERROR_ = 4,
               TRAP = 5, TRAP_SS = 6 };
 
-// Copy one lane's row of every plane (fork children, compaction).
+#ifdef MT_HOST_EMU
+struct alignas(16) mt_u4 { uint32_t x, y, z, w; };
+#else
+typedef uint4 mt_u4;
+#endif
+
+// Copy one lane's row of every plane (fork children, compaction), 16
+// bytes a load where the row size and both planes allow it.
 MT_DEV void copy_row_part(const Planes& src, const Planes& dst, int s_lane,
                           int d_lane, int tid, int nthreads) {
   for (int f = 0; f < NFIELDS; ++f) {
     int64_t rb = src.row_bytes[f];
-    if ((rb & 3) == 0) {
+    if ((rb & 15) == 0 && (((uintptr_t)src.p[f] | (uintptr_t)dst.p[f]) & 15) == 0) {
+      const mt_u4* s = (const mt_u4*)((const uint8_t*)src.p[f] + rb * s_lane);
+      mt_u4* d = (mt_u4*)((uint8_t*)dst.p[f] + rb * d_lane);
+      for (int64_t i = tid; i < rb / 16; i += nthreads) d[i] = s[i];
+    } else if ((rb & 3) == 0) {
       const uint32_t* s = (const uint32_t*)((const uint8_t*)src.p[f] + rb * s_lane);
       uint32_t* d = (uint32_t*)((uint8_t*)dst.p[f] + rb * d_lane);
       for (int64_t i = tid; i < rb / 4; i += nthreads) d[i] = s[i];

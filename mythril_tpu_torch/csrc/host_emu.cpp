@@ -1,6 +1,7 @@
 // Host emulation of the kernels' lane logic, for the CPU tests: the same
 // headers compiled as plain C++ (-DMT_HOST_EMU), with loops over lanes
-// standing in for the grids of step.cu, inloop.cu, megakernel.cu,
+// standing in for the grids (and K1's rank run thread by thread between
+// its barriers) of step.cu, inloop.cu, megakernel.cu,
 // keccak.cu, solve.cu, transfer.cu, hist.cu, slice.cu and mesh.cu. Built with g++ by
 // tests/test_torch_kernel_logic.py and tests/test_torch_mesh_kernels.py; never used on the card.
 #include <stdint.h>
@@ -16,52 +17,61 @@
 
 #include <vector>
 
-struct HostRow {
-  const uint8_t* row;
-  int avail;
-  uint32_t operator()(int i) const { return i < avail ? row[i] : 0u; }
-};
-
 extern "C" {
 
-// K1: plan (n_shards blocks, step.cu), K2 over the SHA3 windows, lane
-// pass, fork copies
-int emu_step_sharded(const Planes* Pp, const Bank* Bp, const int32_t* tab, int32_t* slot,
-                     uint8_t* fork_do, int32_t* fork_dest, uint8_t* sha_active, int32_t* sha_off,
-                     int32_t* sha_avail, int32_t* sha_len, uint8_t* sha_digest, int n_shards) {
-  const Planes& P = *Pp;
-  if (n_shards < 1 || P.L % n_shards != 0) return 2;
-  const Bank& B = *Bp;
-  if (P.L > 1024) return 1;
-  uint8_t free_[1024], req[1024];
-  int32_t rank[1024];
-  for (int l = 0; l < P.L; ++l) {
-    int dest;
-    free_[l] = PL(uint8_t, F_ALIVE)[l] ? 0 : 1;
-    req[l] = fork_base_of(P, B, tab, l, &dest) ? 1 : 0;
-    sha_request(P, B, l, sha_active, sha_off, sha_avail, sha_len);
-  }
-  for (int s = 0; s < n_shards; ++s)
-    plan_assign_block(P.L / n_shards, s * (P.L / n_shards), free_, req, slot, rank);
-  for (int l = 0; l < P.L; ++l) {
-    if (!sha_active[l]) continue;
-    HostRow g{PL(uint8_t, F_MEMORY) + (int64_t)l * P.M + sha_off[l], sha_avail[l]};
-    keccak256_padded(g, sha_len[l], (SHA_CAP + KECCAK_RATE) / KECCAK_RATE, sha_digest + l * 32);
-  }
-  for (int l = 0; l < P.L; ++l) step_lane(P, B, tab, slot, sha_digest, fork_do, fork_dest, l);
-  for (int l = 0; l < P.L; ++l) {
-    if (!fork_do[l]) continue;
-    copy_row_part(P, P, l, slot[l], 0, 1);
-    fork_child_edits(P, slot[l], fork_dest[l]);
-  }
+// K1's fork rank in one block of nthreads "threads", run thread by
+// thread between the block's barriers (step.cu, part (b)).
+static void emu_rank_block(int L, const uint8_t* flags, RankShared& rs, int nthreads) {
+  for (int t = 0; t < nthreads; ++t) rank_sum_chunk(L, flags, rs, t, nthreads);
+  rank_scan_warps(rs, nthreads);
+  for (int t = 0; t < nthreads; ++t) rank_prefix(L, flags, rs, t, nthreads);
+  for (int t = 0; t < nthreads; ++t) rank_scatter(L, flags, rs, t, nthreads);
+}
+
+static bool emu_rank_ok(int L, int n_shards, int nthreads) {
+  return L >= 1 && L <= RANK_MAX_LANES && n_shards >= 1 && L % n_shards == 0 && nthreads >= 32 &&
+         nthreads % 32 == 0 && nthreads <= RANK_MAX_THREADS;
+}
+
+// K1's rank alone, from given flags: every lane's slot code, and
+// whether any lane runs.
+int emu_fork_rank(int L, int n_shards, const uint8_t* flags, int nthreads, int32_t* slot,
+                  int32_t* any_running) {
+  if (!emu_rank_ok(L, n_shards, nthreads)) return 2;
+  std::vector<RankShared> rs(1);
+  emu_rank_block(L, flags, rs[0], nthreads);
+  for (int l = 0; l < L; ++l) slot[l] = fork_slot(L, L / n_shards, flags, rs[0], l);
+  *any_running = rank_any_running(rs[0], L);
   return 0;
 }
 
-int emu_step(const Planes* Pp, const Bank* Bp, const int32_t* tab, int32_t* slot, uint8_t* fork_do,
-             int32_t* fork_dest, uint8_t* sha_active, int32_t* sha_off, int32_t* sha_avail,
-             int32_t* sha_len, uint8_t* sha_digest) {
-  return emu_step_sharded(Pp, Bp, tab, slot, fork_do, fork_dest, sha_active, sha_off, sha_avail,
-                          sha_len, sha_digest, 1);
+// K1 (step.cu): n_steps steps as one launch runs them, with blocks of
+// nthreads threads. The lane pass visits the lanes in ``order`` (null:
+// 0..L-1), one warp a lane: a lane steps and its fork is copied before
+// the next lane steps.
+int emu_step_run(const Planes* Pp, const Bank* Bp, const int32_t* tab, uint8_t* flags,
+                 const int32_t* ctl, int n_shards, int n_steps, int nthreads, const int32_t* order) {
+  const Planes& P = *Pp;
+  const Bank& B = *Bp;
+  const int L = P.L;
+  if (!emu_rank_ok(L, n_shards, nthreads)) return 2;
+  if (ctl && !ctl[1]) return 0;
+  std::vector<RankShared> rs(1);
+  const int per = L / n_shards;
+  for (int step = 0; step < n_steps; ++step) {
+    for (int l = 0; l < L; ++l) flags[l] = lane_flags(P, B, tab, l);
+    emu_rank_block(L, flags, rs[0], nthreads);
+    if (!rank_any_running(rs[0], L)) return 0;
+    for (int i = 0; i < L; ++i) {
+      const int lane = order ? order[i] : i;
+      int dest;
+      const int child = fork_slot(L, per, flags, rs[0], lane);
+      if (!lane_pass(P, B, tab, flags, child, lane, &dest)) continue;
+      copy_row_part(P, P, lane, child, 0, 1);
+      fork_child_edits(P, child, dest);
+    }
+  }
+  return 0;
 }
 
 // K3
@@ -112,7 +122,7 @@ int emu_epilogue(const Planes* Pp, const Planes* Sp, const uint8_t* prune_revert
 int emu_keccak(const uint8_t* data, const int32_t* length, uint8_t* out, int rows, int n,
                int max_blocks) {
   for (int r = 0; r < rows; ++r) {
-    HostRow g{data + (int64_t)r * n, n};
+    WindowGet g{data + (int64_t)r * n, n};
     keccak256_padded(g, length[r], max_blocks, out + (int64_t)r * 32);
   }
   return 0;

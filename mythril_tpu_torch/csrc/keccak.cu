@@ -3,15 +3,9 @@
 // A row is a window of a byte plane: byte i of row r is
 // base[r * stride + off[r] + i] for i < avail[r], else 0 (off/avail null:
 // 0 and n). Rows with active[r] == 0 are skipped (active null: all run).
-// The step kernel group uses the windows for SHA3 over lane memory.
+// The step kernel (K1) hashes its lanes' SHA3 windows itself.
 // Bound: bytes (each row's message bytes read once, 32 written).
 #include "keccak.cuh"
-
-struct WindowGet {
-  const uint8_t* row;
-  int avail;
-  __device__ uint32_t operator()(int i) const { return i < avail ? row[i] : 0u; }
-};
 
 __global__ void keccak256_rows(const uint8_t* base, int64_t stride, const int32_t* off,
                                const int32_t* avail, const int32_t* length, const uint8_t* active,

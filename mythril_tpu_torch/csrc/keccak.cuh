@@ -41,6 +41,14 @@ MT_DEV void keccak_f(uint64_t* s) {
   }
 }
 
+// A window of a byte row: byte i is row[i] for i < avail, else 0 (K2's
+// rows and the step's SHA3 over a lane's memory).
+struct WindowGet {
+  const uint8_t* row;
+  int avail;
+  MT_DEVM uint32_t operator()(int i) const { return i < avail ? row[i] : 0u; }
+};
+
 // Keccak-256 with the reference's padding: message byte i (i < cap =
 // max_blocks * RATE) is data(i) for i < length, OR 0x01 at i == length,
 // OR 0x80 at the last byte of block ceil((length+1)/RATE); only

@@ -1,80 +1,158 @@
-// K1: the step kernel group (replaces mythril_tpu/laser/tpu/engine.py:118
-// step_impl). Per step: plan (one block ranks the fork requests and
-// writes each lane's concrete-SHA3 window), then K2 hashes those windows
-// (launched by the Python wrapper from the keccak library), then lane
-// (one thread per lane, in place) and fork (one block per forking parent
-// copies its lane into the child). Each kernel reads the fused loop's
-// control word first (ctl may be null outside the loop). With n_shards
-// > 1 (the fused mesh tier) the plan ranks forks inside each of the
-// n_shards contiguous lane blocks, one thread per block; with n_shards = 1
-// the one block is every lane (the single-device plan, thread 0).
+// K1: the step kernel (replaces mythril_tpu/laser/tpu/engine.py:118
+// step_impl, and the reference round's lax.fori_loop over it,
+// megakernel.py:165). One cooperative launch runs n_steps steps of every
+// lane. Per step:
+//  (a) every lane's flags (free, fork request, running; lane_flags) from
+//      the pre-step state into scratch, one thread per lane; grid.sync();
+//  (b) the fork rank (step.cuh): every block scans all the flags in its
+//      own shared memory, so no third barrier hands slots around. When
+//      no lane runs, every block leaves: they read the same flags, and a
+//      step without a running lane changes nothing;
+//  (c) the lane pass: each warp owns one lane in a grid-stride loop over
+//      the grid's warps, so no warp pays for another lane's opcode
+//      branches. Its thread 0 steps the lane (step_lane, SHA3 hashed
+//      there from the lane's own pre-step memory); if the lane forks,
+//      the whole warp copies its post-step row into the child and thread
+//      0 applies the child's edits; grid.sync().
+// A child is a lane that was free when the step began, given to exactly
+// one parent, so nothing else touches it in the step and no barrier has
+// to separate the copies from the lane pass: its owner skips it by the
+// step's flags (lane_pass), never by the live planes the copy rewrites.
+//
+// ctl (the fused loop's control word, null outside it) is read once:
+// nothing inside a launch writes it, so every block takes the same
+// branch and reaches the same grid.sync()s. The grid is as many blocks
+// as the lanes need, at most what fits on the card at once (occupancy x
+// SMs), since a cooperative launch must be resident as a whole; a
+// refused launch returns its CUDA error, and the wrapper raises.
+//
+// Bound on the H100: bytes (each running lane's fetch, operands and the
+// planes its opcode touches; each child's whole row). At the main path's
+// shapes the step is latency-bound: the slowest lane's serial step and
+// two grid barriers per step.
+#include <cooperative_groups.h>
+
 #include "step.cuh"
 
-#define PLAN_MAX_LANES 1024
+namespace cg = cooperative_groups;
 
-__global__ void step_plan_kernel(Planes P, Bank B, const int32_t* tab, int32_t* slot,
-                                 uint8_t* sha_active, int32_t* sha_off, int32_t* sha_avail,
-                                 int32_t* sha_len, const int32_t* ctl, int n_shards) {
+#define RUN_THREADS 128
+#define MAX_DEVICES 64
+
+__global__ void __launch_bounds__(RUN_THREADS)
+    step_run_kernel(Planes P, Bank B, const int32_t* tab, uint8_t* flags, const int32_t* ctl,
+                    int n_shards, int n_steps) {
   if (ctl && !ctl[1]) return;
-  __shared__ uint8_t free_s[PLAN_MAX_LANES];
-  __shared__ uint8_t req_s[PLAN_MAX_LANES];
-  __shared__ int32_t rank_s[PLAN_MAX_LANES];
-  for (int l = threadIdx.x; l < P.L; l += blockDim.x) {
-    int dest;
-    free_s[l] = PL(uint8_t, F_ALIVE)[l] ? 0 : 1;
-    req_s[l] = fork_base_of(P, B, tab, l, &dest) ? 1 : 0;
-    sha_request(P, B, l, sha_active, sha_off, sha_avail, sha_len);
+  cg::grid_group grid = cg::this_grid();
+  __shared__ RankShared rs;
+  const int tid = threadIdx.x, nt = blockDim.x, wl = tid & 31;
+  const int L = P.L, per = L / n_shards;
+  const int gtid = blockIdx.x * nt + tid, gthreads = gridDim.x * nt;
+  const int gwarp = blockIdx.x * (nt / 32) + (tid >> 5), nwarps = gridDim.x * (nt / 32);
+  for (int step = 0; step < n_steps; ++step) {
+    // (a)
+    for (int l = gtid; l < L; l += gthreads) flags[l] = lane_flags(P, B, tab, l);
+    grid.sync();
+    // (b)
+    rank_sum_chunk(L, flags, rs, tid, nt);
+    __syncthreads();
+    rank_scan_warp(rs, tid);
+    __syncthreads();
+    rank_prefix(L, flags, rs, tid, nt);
+    __syncthreads();
+    rank_scatter(L, flags, rs, tid, nt);
+    __syncthreads();
+    if (!rank_any_running(rs, L)) return;
+    // (c)
+    for (int lane = gwarp; lane < L; lane += nwarps) {
+      int child = SLOT_NONE, dest = 0, fork = 0;
+      if (wl == 0) {
+        child = fork_slot(L, per, flags, rs, lane);
+        fork = lane_pass(P, B, tab, flags, child, lane, &dest);
+      }
+      if (__shfl_sync(0xffffffffu, fork, 0)) {
+        child = __shfl_sync(0xffffffffu, child, 0);
+        copy_row_part(P, P, lane, child, wl, 32);
+        __syncwarp();
+        if (wl == 0) fork_child_edits(P, child, dest);
+      }
+      __syncwarp();
+    }
+    grid.sync();
   }
-  __syncthreads();
-  int per = P.L / n_shards;
-  for (int s = threadIdx.x; s < n_shards; s += blockDim.x)
-    plan_assign_block(per, s * per, free_s, req_s, slot, rank_s);
 }
 
-__global__ void step_lane_kernel(Planes P, Bank B, const int32_t* tab, const int32_t* slot,
-                                 const uint8_t* sha_digest, uint8_t* fork_do, int32_t* fork_dest,
-                                 const int32_t* ctl) {
-  if (ctl && !ctl[1]) return;
-  int lane = blockIdx.x * blockDim.x + threadIdx.x;
-  if (lane >= P.L) return;
-  step_lane(P, B, tab, slot, sha_digest, fork_do, fork_dest, lane);
-}
-
-__global__ void step_fork_kernel(Planes P, const uint8_t* fork_do, const int32_t* slot,
-                                 const int32_t* fork_dest, const int32_t* ctl) {
-  if (ctl && !ctl[1]) return;
-  int parent = blockIdx.x;
-  if (!fork_do[parent]) return;
-  int child = slot[parent];
-  copy_row_part(P, P, parent, child, threadIdx.x, blockDim.x);
-  __syncthreads();
-  if (threadIdx.x == 0) fork_child_edits(P, child, fork_dest[parent]);
+// The most blocks of step_run_kernel the current device holds at once.
+static int max_resident_blocks(int* out) {
+  static int cache[MAX_DEVICES];
+  int dev;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e) return (int)e;
+  if (dev < MAX_DEVICES && cache[dev]) {
+    *out = cache[dev];
+    return 0;
+  }
+  int per_sm = 0, sms = 0;
+  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, step_run_kernel, RUN_THREADS, 0);
+  if (e) return (int)e;
+  e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e) return (int)e;
+  *out = per_sm * sms;
+  if (dev < MAX_DEVICES) cache[dev] = *out;
+  return 0;
 }
 
 MT_ERROR_STRING_FN
 
-MT_EXPORT int mt_step_plan(const Planes* P, const Bank* B, const int32_t* tab, int32_t* slot,
-                           uint8_t* sha_active, int32_t* sha_off, int32_t* sha_avail,
-                           int32_t* sha_len, const int32_t* ctl, int n_shards, int nfields,
-                           cudaStream_t stream) {
+// blocks: 0 sizes the grid from the lanes and what the card holds at
+// once; a positive count launches exactly that many blocks (more than
+// fit is refused by the card: chip_smoke.py checks that it raises).
+MT_EXPORT int mt_step_run(const Planes* P, const Bank* B, const int32_t* tab, uint8_t* flags,
+                          const int32_t* ctl, int n_shards, int n_steps, int blocks, int nfields,
+                          cudaStream_t stream) {
   if (nfields != NFIELDS) return (int)cudaErrorInvalidValue;
-  if (P->L > PLAN_MAX_LANES || P->L <= 0) return (int)cudaErrorInvalidConfiguration;
+  if (P->L > RANK_MAX_LANES || P->L <= 0) return (int)cudaErrorInvalidConfiguration;
   if (n_shards < 1 || P->L % n_shards != 0) return (int)cudaErrorInvalidValue;
-  step_plan_kernel<<<1, P->L < 256 ? P->L : 256, 0, stream>>>(*P, *B, tab, slot, sha_active,
-                                                                sha_off, sha_avail, sha_len, ctl,
-                                                                n_shards);
+  if (n_steps < 0 || blocks < 0) return (int)cudaErrorInvalidValue;
+  if (n_steps == 0) return 0;
+  int grid = blocks;
+  if (!grid) {
+    int most;
+    int err = max_resident_blocks(&most);
+    if (err) return err;
+    const int need = (P->L + RUN_THREADS / 32 - 1) / (RUN_THREADS / 32);
+    grid = need < most ? need : most;
+    if (grid < 1) return (int)cudaErrorCooperativeLaunchTooLarge;
+  }
+  Planes Pv = *P;
+  Bank Bv = *B;
+  void* args[] = {&Pv, &Bv, (void*)&tab, (void*)&flags, (void*)&ctl, &n_shards, &n_steps};
+  int err = (int)cudaLaunchCooperativeKernel((const void*)step_run_kernel, dim3(grid),
+                                             dim3(RUN_THREADS), args, 0, stream);
+  if (err) {
+    cudaGetLastError();  // leave no error behind for the next launch's check
+    return err;
+  }
   return (int)cudaGetLastError();
 }
 
-MT_EXPORT int mt_step_lanes(const Planes* P, const Bank* B, const int32_t* tab, const int32_t* slot,
-                            const uint8_t* sha_digest, uint8_t* fork_do, int32_t* fork_dest,
-                            const int32_t* ctl, int nfields, int lane_threads,
-                            cudaStream_t stream) {
-  if (nfields != NFIELDS) return (int)cudaErrorInvalidValue;
-  step_lane_kernel<<<(P->L + lane_threads - 1) / lane_threads, lane_threads, 0, stream>>>(
-      *P, *B, tab, slot, sha_digest, fork_do, fork_dest, ctl);
-  int err = (int)cudaGetLastError();
-  if (err) return err;
-  step_fork_kernel<<<P->L, 256, 0, stream>>>(*P, fork_do, slot, fork_dest, ctl);
-  return (int)cudaGetLastError();
+// out = [registers per thread, local bytes per thread (spills and stack),
+// static shared bytes per block, threads per block, blocks resident per
+// SM, SMs]: what chip_smoke.py prints beside K1's times.
+MT_EXPORT int mt_step_run_info(int* out) {
+  cudaFuncAttributes a;
+  cudaError_t e = cudaFuncGetAttributes(&a, step_run_kernel);
+  if (e) return (int)e;
+  int dev, per_sm = 0, sms = 0;
+  if ((e = cudaGetDevice(&dev))) return (int)e;
+  if ((e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, step_run_kernel, RUN_THREADS, 0)))
+    return (int)e;
+  if ((e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev))) return (int)e;
+  out[0] = a.numRegs;
+  out[1] = (int)a.localSizeBytes;
+  out[2] = (int)a.sharedSizeBytes;
+  out[3] = RUN_THREADS;
+  out[4] = per_sm;
+  out[5] = sms;
+  return 0;
 }

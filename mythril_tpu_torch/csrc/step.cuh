@@ -1,6 +1,7 @@
 // K1: one EVM instruction per lane (replaces mythril_tpu/laser/tpu/engine.py
-// step_impl). Written per lane; see engine.py in the port for the launch
-// structure (plan -> lane -> fork) and the reference for every rule.
+// step_impl). Written per lane; see step.cu for the launch structure
+// (flags -> rank -> lane pass and fork copy, per step) and the reference
+// for every rule.
 #pragma once
 #include "common.cuh"
 #include "keccak.cuh"
@@ -22,7 +23,7 @@
 #define DIGEST_DIGITS 8
 #define DIGEST_RECORD_BYTES 33
 
-// fork slot codes written by the plan pass
+// fork slot codes (fork_slot)
 #define SLOT_NONE (-1)
 #define SLOT_FULL (-2)
 
@@ -40,8 +41,8 @@ MT_DEV uint32_t pack_meta(int pc, int path_len) {
 }
 
 // The fork request of a lane (engine.py:964-1003), from the pre-step
-// state alone: used by the plan pass to rank requests and by the lane
-// pass, which must agree with it. Sets *dest to the jump target.
+// state alone: ranked by the fork rank, and the lane pass must agree
+// with it. Sets *dest to the jump target.
 MT_DEV bool fork_base_of(const Planes& P, const Bank& B, const int32_t* tab, int lane, int* dest) {
   *dest = 0;
   if (!PL(uint8_t, F_ALIVE)[lane] || PL(int32_t, F_STATUS)[lane] != RUNNING) return false;
@@ -73,60 +74,6 @@ MT_DEV bool fork_base_of(const Planes& P, const Bank& B, const int32_t* tab, int
   return !prune_child;
 }
 
-// Plan, serial part (thread 0 of the one plan block): rank the free
-// lanes and the requests; request r gets the r-th free lane if one
-// exists (engine.py:1004-1009, 1327-1332).
-MT_DEV void plan_assign(int L, const uint8_t* free_, const uint8_t* req, int32_t* slot,
-                        int32_t* free_by_rank) {
-  int nfree = 0;
-  for (int l = 0; l < L; ++l) if (free_[l]) free_by_rank[nfree++] = l;
-  int r = 0;
-  for (int l = 0; l < L; ++l) {
-    if (req[l]) { slot[l] = r < nfree ? free_by_rank[r] : SLOT_FULL; ++r; }
-    else slot[l] = SLOT_NONE;
-  }
-}
-
-// The same ranking inside one block [base, base + per) of a mesh of
-// contiguous lane blocks: the fused mesh tier runs the step under
-// shard_map (megakernel.py:360), so each shard ranks only its own free
-// lanes and requests, and a request of a shard with no free lane left
-// gets SLOT_FULL (fork_no_slot) whatever the other shards hold. Slots
-// stay global lane indices.
-MT_DEV void plan_assign_block(int per, int base, const uint8_t* free_, const uint8_t* req,
-                              int32_t* slot, int32_t* free_by_rank) {
-  plan_assign(per, free_ + base, req + base, slot + base, free_by_rank + base);
-  if (base)
-    for (int l = base; l < base + per; ++l)
-      if (slot[l] >= 0) slot[l] += base;
-}
-
-// The concrete SHA3 request of a lane (engine.py:782-793): RUNNING lanes
-// at SHA3 that do not trap on length hash min(b32, SHA_CAP) bytes of
-// their memory from a32 on (bytes past the plane read as zero). The plan
-// pass writes it per lane; K2 hashes the windows before the lane pass.
-MT_DEV void sha_request(const Planes& P, const Bank& B, int lane, uint8_t* active, int32_t* off,
-                        int32_t* avail, int32_t* len) {
-  active[lane] = 0; off[lane] = 0; avail[lane] = 0; len[lane] = 0;
-  if (!PL(uint8_t, F_ALIVE)[lane] || PL(int32_t, F_STATUS)[lane] != RUNNING) return;
-  const int S = P.S, CL = P.CL;
-  int pc = PL(int32_t, F_PC)[lane], cid = PL(int32_t, F_CODE_ID)[lane];
-  if (pc >= B.code_len[cid] || B.code[(int64_t)cid * CL + clampi(pc, 0, CL - 1)] != 0x20) return;
-  int sp = PL(int32_t, F_SP)[lane];
-  const int32_t* ssym = PL(int32_t, F_STACK_SYM) + (int64_t)lane * S;
-  bool has_a = sp > 0 && ssym[clampi(sp - 1, 0, S - 1)] > 0;
-  bool has_b = sp > 1 && ssym[clampi(sp - 2, 0, S - 1)] > 0;
-  const uint32_t* stk = PL(uint32_t, F_STACK) + (int64_t)lane * S * ND;
-  bool a_fits, b_fits;
-  int a32 = off_view(stk + clampi(sp - 1, 0, S - 1) * ND, &a_fits);
-  int b32 = off_view(stk + clampi(sp - 2, 0, S - 1) * ND, &b_fits);
-  if (!has_a && !has_b && b32 > SHA_CAP) return;  // sha_trap
-  active[lane] = 1;
-  off[lane] = a32 < P.M ? a32 : 0;
-  avail[lane] = a32 < P.M ? P.M - a32 : 0;
-  len[lane] = b32 < SHA_CAP ? b32 : SHA_CAP;
-}
-
 struct BufGet {
   const uint8_t* buf;
   MT_DEVM uint32_t operator()(int j) const { return buf[j]; }
@@ -134,11 +81,12 @@ struct BufGet {
 
 // The per-lane step. Lanes that are not RUNNING are left untouched, as
 // in the reference (every write there is gated on running or committed).
-// fork_do[lane] / fork_dest[lane] tell the fork pass what to copy.
-MT_DEV void step_lane(const Planes& P, const Bank& B, const int32_t* tab, const int32_t* slot,
-                      const uint8_t* sha_digest, uint8_t* fork_do, int32_t* fork_dest, int lane) {
-  fork_do[lane] = 0;
-  if (!PL(uint8_t, F_ALIVE)[lane] || PL(int32_t, F_STATUS)[lane] != RUNNING) return;
+// ``slot`` is the lane's fork slot code (fork_slot). Returns true when
+// the lane committed a fork into ``slot``, with *fork_dest the child's
+// jump target: the caller copies the post-step row into the child.
+MT_DEV bool step_lane(const Planes& P, const Bank& B, const int32_t* tab, int slot, int lane,
+                      int* fork_dest) {
+  if (!PL(uint8_t, F_ALIVE)[lane] || PL(int32_t, F_STATUS)[lane] != RUNNING) return false;
   const int S = P.S, M = P.M, C = P.C, K = P.K, CL = P.CL, T = P.T, MS = P.MS;
   const int64_t ln = lane;
 
@@ -446,14 +394,16 @@ MT_DEV void step_lane(const Planes& P, const Bank& B, const int32_t* tab, const 
   bool ss_full_trap = ev_base && ss_cnt >= SSR;
   bool storage_event = ev_base && !ss_full_trap;
 
-  // ---- SHA3 (concrete): the digest K2 computed between the plan and
-  // lane passes over this lane's memory window (see sha_request)
+  // ---- SHA3 (concrete; engine.py:782-793): hash min(b32, SHA_CAP)
+  // bytes of this lane's pre-step memory from a32 on (zero past the
+  // plane). Nothing else writes a running lane's memory in a step.
   bool sha_trap = is_sha3 && !has_a && !has_b && b32 > SHA_CAP;
   if (is_sha3) {
     w_zero(res);
     if (!sha_trap) {
       uint8_t dg[32];
-      for (int j = 0; j < 32; ++j) dg[j] = sha_digest[ln * 32 + j];
+      WindowGet g{mem + (a32 < M ? a32 : 0), a32 < M ? M - a32 : 0};
+      keccak256_padded(g, b32 < SHA_CAP ? b32 : SHA_CAP, (SHA_CAP + KECCAK_RATE) / KECCAK_RATE, dg);
       w_from_bytes_be(res, dg);
     }
   }
@@ -553,7 +503,7 @@ MT_DEV void step_lane(const Planes& P, const Bank& B, const int32_t* tab, const 
   bool prune_child = (B.prune_revert[0] && PL(uint8_t, F_OUTERMOST)[lane] &&
                       B.must_revert[(int64_t)cid * CL + clampi(dest32, 0, CL - 1)]) || must_fall;
   bool fork_base = fork_want && !prune_child;
-  bool has_slot = fork_base && slot[lane] >= 0;
+  bool has_slot = fork_base && slot >= 0;
   bool fork_no_slot = fork_base && !has_slot;
 
   // ---- status
@@ -599,7 +549,7 @@ MT_DEV void step_lane(const Planes& P, const Bank& B, const int32_t* tab, const 
   PL(uint32_t, F_GAS_LEFT)[lane] = new_gas;
   PL(uint32_t, F_GAS_SPENT_MAX)[lane] = new_gas_max;
   if (is_return || is_revert) { PL(int32_t, F_RET_OFF)[lane] = a32; PL(int32_t, F_RET_LEN)[lane] = b32; }
-  if (!committed) return;
+  if (!committed) return false;
 
   // ---- result tag
   int res_sym = 0;
@@ -698,7 +648,8 @@ MT_DEV void step_lane(const Planes& P, const Bank& B, const int32_t* tab, const 
   if (do_ms_clear) msym_used[exact_slot] = 0;
 
   if ((fork_want && prune_child) || (must_take && path_append)) PL(int32_t, F_STATIC_PRUNED)[lane] += 1;
-  if (has_slot) { fork_do[lane] = 1; fork_dest[lane] = dest32; }
+  *fork_dest = dest32;
+  return has_slot;
 }
 
 // The child's own edits after its planes were copied from the parent
@@ -712,4 +663,132 @@ MT_DEV void fork_child_edits(const Planes& P, int child, int dest) {
   int ri = ((jd % P.JD) + P.JD) % P.JD;
   PL(int32_t, F_JD_RING)[ln * P.JD + ri] = dest;
   PL(int32_t, F_STATIC_PRUNED)[child] = 0;
+}
+
+// ---- The fork rank (engine.py:1004-1009, 1327-1332), as a parallel scan.
+// Request r of a lane block gets the block's r-th free lane, if it has
+// one (SLOT_FULL if not: fork_no_slot). The blocks are the n_shards
+// contiguous runs of per = L / n_shards lanes (the fused mesh tier ranks
+// per shard, megakernel.py:360; one block on a single device), and slots
+// stay global lane indices. A segmented count is a global exclusive
+// prefix minus its value at the block's first lane, so one scan over all
+// lanes serves every shard count.
+//
+// Each lane's flags (lane_flags) are written to global scratch; then the
+// threads of a block scan them in four parts split at __syncthreads(),
+// each a function of (tid, nthreads) that the host emulation runs thread
+// by thread: chunk sums, a Kogge-Stone scan of those within each warp
+// (warp shuffles on the card, the same steps over an array on the host),
+// the per-lane prefixes, and the scatter of free lanes by rank. No thread
+// walks more than ceil(L / nthreads) lanes.
+
+#define RANK_MAX_LANES 1024
+#define RANK_MAX_THREADS 1024
+#define LF_FREE 1
+#define LF_REQ 2
+#define LF_RUN 4
+
+// free | req << 16 | running << 32: three counts of at most 1024 lanes
+MT_DEV uint64_t lf_count(uint8_t f) {
+  return (uint64_t)(f & 1) | ((uint64_t)((f >> 1) & 1) << 16) | ((uint64_t)((f >> 2) & 1) << 32);
+}
+MT_DEV int lf_free(uint64_t c) { return (int)(c & 0xFFFF); }
+MT_DEV int lf_req(uint64_t c) { return (int)((c >> 16) & 0xFFFF); }
+
+struct RankShared {
+  uint64_t part[RANK_MAX_THREADS];  // per thread: its chunk's counts, then their exclusive scan in its warp
+  uint64_t wsum[RANK_MAX_THREADS / 32];  // per warp: its total
+  uint64_t pre[RANK_MAX_LANES + 1];  // per lane: the counts over every lane before it; pre[L]: totals
+  int32_t free_at[RANK_MAX_LANES];  // global free rank -> lane
+};
+
+// A lane's pre-step flags: free (not alive), fork request, running.
+MT_DEV uint8_t lane_flags(const Planes& P, const Bank& B, const int32_t* tab, int lane) {
+  int dest;
+  uint8_t f = PL(uint8_t, F_ALIVE)[lane] ? 0 : LF_FREE;
+  if (fork_base_of(P, B, tab, lane, &dest)) f |= LF_REQ;
+  if (PL(uint8_t, F_ALIVE)[lane] && PL(int32_t, F_STATUS)[lane] == RUNNING) f |= LF_RUN;
+  return f;
+}
+
+MT_DEV void rank_chunk(int L, int tid, int nthreads, int* lo, int* hi) {
+  int c = (L + nthreads - 1) / nthreads;
+  *lo = tid * c < L ? tid * c : L;
+  *hi = *lo + c < L ? *lo + c : L;
+}
+
+// part 1: each thread's chunk sum
+MT_DEV void rank_sum_chunk(int L, const uint8_t* flags, RankShared& rs, int tid, int nthreads) {
+  int lo, hi;
+  rank_chunk(L, tid, nthreads, &lo, &hi);
+  uint64_t s = 0;
+  for (int l = lo; l < hi; ++l) s += lf_count(flags[l]);
+  rs.part[tid] = s;
+}
+
+// part 2: exclusive scan of part[] within each warp, warp totals to wsum
+#ifdef MT_HOST_EMU
+static void rank_scan_warps(RankShared& rs, int nthreads) {
+  for (int w = 0; w * 32 < nthreads; ++w) {
+    uint64_t own[32], v[32], up[32];
+    for (int i = 0; i < 32; ++i) own[i] = v[i] = rs.part[w * 32 + i];
+    for (int d = 1; d < 32; d <<= 1) {  // __shfl_up_sync(v, d) on every lane at once
+      for (int i = 0; i < 32; ++i) up[i] = i >= d ? v[i - d] : 0;
+      for (int i = 0; i < 32; ++i) v[i] += up[i];
+    }
+    for (int i = 0; i < 32; ++i) rs.part[w * 32 + i] = v[i] - own[i];
+    rs.wsum[w] = v[31];
+  }
+}
+#else
+__device__ __forceinline__ void rank_scan_warp(RankShared& rs, int tid) {
+  const int wl = tid & 31;
+  uint64_t own = rs.part[tid], v = own;
+  for (int d = 1; d < 32; d <<= 1) {
+    uint64_t up = __shfl_up_sync(0xffffffffu, (unsigned long long)v, d);
+    if (wl >= d) v += up;
+  }
+  rs.part[tid] = v - own;
+  if (wl == 31) rs.wsum[tid >> 5] = v;
+}
+#endif
+
+// part 3: the per-lane exclusive prefixes; the last thread writes pre[L]
+MT_DEV void rank_prefix(int L, const uint8_t* flags, RankShared& rs, int tid, int nthreads) {
+  uint64_t x = rs.part[tid];
+  for (int w = 0; w < (tid >> 5); ++w) x += rs.wsum[w];
+  int lo, hi;
+  rank_chunk(L, tid, nthreads, &lo, &hi);
+  for (int l = lo; l < hi; ++l) {
+    rs.pre[l] = x;
+    x += lf_count(flags[l]);
+  }
+  if (tid == nthreads - 1) rs.pre[L] = x;
+}
+
+// part 4: free lanes by global free rank
+MT_DEV void rank_scatter(int L, const uint8_t* flags, RankShared& rs, int tid, int nthreads) {
+  for (int l = tid; l < L; l += nthreads)
+    if (flags[l] & LF_FREE) rs.free_at[lf_free(rs.pre[l])] = l;
+}
+
+// after part 4: a lane's slot code, and whether any lane runs
+MT_DEV int fork_slot(int L, int per, const uint8_t* flags, const RankShared& rs, int l) {
+  if (!(flags[l] & LF_REQ)) return SLOT_NONE;
+  int base = l / per * per;
+  uint64_t pb = rs.pre[base], pe = rs.pre[base + per];
+  int r = lf_req(rs.pre[l]) - lf_req(pb);
+  return r < lf_free(pe) - lf_free(pb) ? rs.free_at[lf_free(pb) + r] : SLOT_FULL;
+}
+
+MT_DEV bool rank_any_running(const RankShared& rs, int L) { return (rs.pre[L] >> 32) != 0; }
+
+// The lane pass of one lane, by its owner, after the rank: a lane that
+// was free when the step began is skipped. It may already hold a fork
+// child, copied in this very step by its parent's owner, which must not
+// step again; the live planes cannot tell, the step's flags can.
+MT_DEV bool lane_pass(const Planes& P, const Bank& B, const int32_t* tab, const uint8_t* flags,
+                      int slot, int lane, int* fork_dest) {
+  if (flags[lane] & LF_FREE) return false;
+  return step_lane(P, B, tab, slot, lane, fork_dest);
 }

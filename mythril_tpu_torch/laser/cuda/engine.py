@@ -16,30 +16,41 @@ at engine.py:272, 301, 323, 333, 434, 711, 798 and 1364) become "compute
 on the lanes that need it"; a lane outside the gate never commits the
 value, so the result is the same.
 
-The kernel (``csrc/step.cu``, ``csrc/step.cuh``) runs one thread per
-lane, in four launches per step, because fork placement is the one
-part that crosses lanes (whether a forking parent commits depends on the
-batch-wide free-lane count and its rank, engine.py:1004-1009):
+The kernel (``csrc/step.cu``, ``csrc/step.cuh``) runs ``n_steps`` steps
+in one cooperative launch, as the reference's round runs
+``steps_per_round`` in one ``lax.fori_loop`` (megakernel.py:165). Fork
+placement is the one part that crosses lanes (whether a forking parent
+commits depends on its block's free-lane count and its rank,
+engine.py:1004-1009), so each step is three phases behind grid
+barriers:
 
-1. ``plan`` (one block, L <= 1024, rejected above): each thread computes
-   its lane's fork request and free flag from the pre-step state; thread
-   0 ranks them serially in shared memory and assigns each requesting
-   lane its child slot, or none. It also writes each lane's concrete
-   SHA3 window (offset, length into its memory plane).
-2. K2 (``keccak.keccak256_window``) hashes those windows, as the
-   reference's ``do_sha`` calls ``keccak256_batch`` (engine.py:784-793).
-3. ``lane`` (L threads): the per-lane step, written in place — each
-   thread touches only its own lane, and free lanes never step.
-4. ``fork`` (one block per lane): every committed forking parent's
-   post-step lane is copied plane by plane into its child, then the
-   child's own edits (pc, last path sign, landing ring, prune counter).
+1. every lane's flags (free, fork request, running) from the pre-step
+   state into scratch;
+2. the fork rank: each block scans the flags in shared memory (a warp
+   shuffle scan; no thread walks more than L / 128 lanes) and gives the
+   r-th request of a lane block its r-th free lane, or none. With no lane
+   running the launch ends: no later step could change anything;
+3. the lane pass: one warp per lane. Its
+   first thread steps the lane in place, hashing a concrete SHA3 from the
+   lane's own pre-step memory (the reference's ``do_sha`` and
+   ``keccak256_batch``, engine.py:784-793); then the warp copies a
+   committed forking parent's post-step row into its child and applies
+   the child's own edits (pc, last path sign, landing ring, prune
+   counter). The child was free when the step began and is skipped by
+   its owner on the step's flags, so no barrier separates copy and lane
+   pass.
+
+``step`` is one launch of one step (one ctypes call); ``step_n`` one
+launch of ``n_steps``, which the fused loops issue once per round. K2 is
+not launched by the step: it stays for callers that hash rows alone.
 
 Bound on the H100: bytes. A step reads each running lane's fetch,
 operands and the planes its opcode touches; the forced minimum is far
 below the kernel's real traffic (one thread walks its lane's tape for
 CSE and its storage slots), and at the main path's shapes the kernel is
-latency- and launch-bound. Each launch first reads the fused loop's
-control word and returns at once once the loop has ended.
+latency-bound (the slowest lane's serial step and two grid barriers per
+step). A launch first reads the fused loop's control word and returns at
+once once the loop has ended.
 
 Stats mode and the sync slice loop (B8 and B10) live here too:
 
@@ -55,7 +66,7 @@ Stats mode and the sync slice loop (B8 and B10) live here too:
   is alive and RUNNING, the condition evaluated before each step. On
   the card ``max_steps`` steps are queued with no host sync, each
   behind K9 (``csrc/slice.cu``), which evaluates the condition into the
-  control word that K1, K2 and K8 read first; ``any_running`` is the
+  control word that K1 and K8 read first; ``any_running`` is the
   caller's one quiescence read per slice.
 """
 
@@ -110,6 +121,7 @@ _INVALID[0xFE] = True
 SENT = 1 << 28  # offset sentinel for operands that do not fit
 
 launches = 0  # K1 launches (CUDA path only)
+steps_run = 0  # the steps those launches were asked for (n_steps summed; a launch ends early once no lane runs)
 hist_launches = 0  # K8 launches (CUDA path only)
 slice_launches = 0  # K9 launches (CUDA path only)
 
@@ -918,17 +930,28 @@ def step(cb: CodeBank, env, st: StateBatch, device="cuda", ctl=None, inplace=Fal
          n_shards: int = 1) -> StateBatch:
     """Advance every lane one instruction.
 
-    On the CPU this is ``step_plain``. On the card it launches K1; with
-    ``inplace`` the batch's own tensors are updated (the fused loop),
-    otherwise a copy is stepped and returned. ``ctl`` is the fused loop's
-    control word (the kernels return at once once it says stop);
+    On the CPU this is ``step_plain``. On the card it is one K1 launch
+    of one step; with ``inplace`` the batch's own tensors are updated
+    (the loops), otherwise a copy is stepped and returned. ``ctl`` is the
+    loop's control word (the kernel returns at once once it says stop);
     ``args`` (kernels.StepArgs of this very batch, built with the same
     ``n_shards``) saves rebuilding the launch structs on every step of
     the loop. ``n_shards`` > 1 places forks per lane block (the fused
     mesh tier, see ``step_plain``)."""
+    return step_n(cb, env, st, 1, device=device, ctl=ctl, inplace=inplace, args=args, n_shards=n_shards)
+
+
+def step_n(cb: CodeBank, env, st: StateBatch, n_steps: int, device="cuda", ctl=None, inplace=False, args=None,
+           n_shards: int = 1) -> StateBatch:
+    """Advance every lane ``n_steps`` instructions: ``step`` repeated, in
+    one K1 launch on the card (the fused loops' round). On the CPU it is
+    ``step_plain`` repeated while ``ctl`` (if given) says continue."""
     _build.check_on(device, st.pc, cb.code)
     if st.pc.device.type == "cpu":
-        return step_plain(cb, st, n_shards)
+        if ctl is None or bool(ctl[1]):
+            for _ in range(int(n_steps)):
+                st = step_plain(cb, st, n_shards)
+        return st
     from mythril_tpu_torch.laser.cuda import kernels
 
     if not inplace:
@@ -938,12 +961,10 @@ def step(cb: CodeBank, env, st: StateBatch, device="cuda", ctl=None, inplace=Fal
         args = kernels.StepArgs(cb, st, n_shards)
     elif args.n_shards != n_shards:
         raise _build.KernelError(f"StepArgs built for {args.n_shards} shards, step asked for {n_shards}")
-    global launches
+    global launches, steps_run
     launches += 1
-    sc = args.sc
-    kernels.launch_step_plan(args, ctl)
-    keccak_mod.keccak256_window(st.memory, sc.sha_off, sc.sha_avail, sc.sha_len, sc.sha_active, sc.sha_digest, ctl)
-    kernels.launch_step_lanes(args, ctl)
+    steps_run += int(n_steps)
+    kernels.launch_step_run(args, n_steps, ctl)
     return st
 
 
@@ -1063,7 +1084,7 @@ def _run_impl(cb: CodeBank, env, st: StateBatch, max_steps: int, with_stats: boo
         return run_plain(cb, st, max_steps, with_stats)
     from mythril_tpu_torch.laser.cuda import kernels
 
-    # card: max_steps x (K9, K1, K2 [, K8]) queued, the condition on the device
+    # card: max_steps x (K9, K1 [, K8]) queued, the condition on the device
     s = StateBatch(*(x.clone() for x in st))
     ctl = torch.zeros(4, dtype=torch.int32, device=dev)
     hist = torch.zeros(256 if with_stats else 1, dtype=torch.int32, device=dev)

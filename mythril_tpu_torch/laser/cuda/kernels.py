@@ -107,20 +107,15 @@ def op_tables(dev) -> torch.Tensor:
 
 
 class Scratch:
-    """Per-(device, L) scratch buffers for the step and the epilogue."""
+    """Per-(device, L) scratch buffers for the step and the epilogue:
+    K1's per-step lane flags, K4's order and dying masks. Shared by every
+    loop on the device, which run one at a time per stream."""
 
     _cache = {}
 
     def __init__(self, dev, L):
         self.tab = op_tables(dev)
-        self.slot = torch.empty(L, dtype=torch.int32, device=dev)
-        self.fork_do = torch.empty(L, dtype=torch.uint8, device=dev)
-        self.fork_dest = torch.empty(L, dtype=torch.int32, device=dev)
-        self.sha_active = torch.zeros(L, dtype=torch.uint8, device=dev)
-        self.sha_off = torch.zeros(L, dtype=torch.int32, device=dev)
-        self.sha_avail = torch.zeros(L, dtype=torch.int32, device=dev)
-        self.sha_len = torch.zeros(L, dtype=torch.int32, device=dev)
-        self.sha_digest = torch.zeros((L, 32), dtype=torch.uint8, device=dev)
+        self.flags = torch.zeros(L, dtype=torch.uint8, device=dev)
         self.order = torch.empty(L, dtype=torch.int32, device=dev)
         self.dying = torch.empty(L, dtype=torch.uint8, device=dev)
 
@@ -132,14 +127,13 @@ class Scratch:
         return cls._cache[key]
 
 
-LANE_THREADS = 64
 _FNS = {}
 _P = ctypes.POINTER
 _V = ctypes.c_void_p
 _I = ctypes.c_int
 _SIGS = {
-    ("step", "mt_step_plan"): [_P(Planes), _P(Bank)] + [_V] * 7 + [_I, _I, _V],
-    ("step", "mt_step_lanes"): [_P(Planes), _P(Bank)] + [_V] * 6 + [_I, _I, _V],
+    ("step", "mt_step_run"): [_P(Planes), _P(Bank)] + [_V] * 3 + [_I] * 4 + [_V],
+    ("step", "mt_step_run_info"): [_V],
     ("inloop", "mt_unsat_mask"): [_P(Planes), _P(Pool), _V, _V, _I, _V],
     ("megakernel", "mt_round_epilogue"): [_P(Planes), _P(Planes)] + [_V] * 7 + [_I, _I, _I, _V, _I, _V],
     ("solve", "mt_solve"): [_V] * 7 + [_I] * 4 + [ctypes.c_uint32, _V],
@@ -192,22 +186,27 @@ class StepArgs:
         self.n_shards = int(n_shards)
 
 
-def launch_step_plan(a: StepArgs, ctl=None) -> None:
-    """K1's plan pass: fork ranks and the concrete-SHA3 windows."""
+def launch_step_run(a: StepArgs, n_steps: int, ctl=None, blocks: int = 0) -> None:
+    """K1: ``n_steps`` steps of every lane in one cooperative launch, of
+    as many blocks as the lanes need and the card holds at once
+    (``blocks`` > 0: exactly that many). A launch the card refuses (too
+    large to be resident) raises."""
     sc = a.sc
-    rc = _fn("step", "mt_step_plan")(
-        ctypes.byref(a.pl), ctypes.byref(a.bk), _vp(sc.tab), _vp(sc.slot), _vp(sc.sha_active),
-        _vp(sc.sha_off), _vp(sc.sha_avail), _vp(sc.sha_len), _vp(ctl), a.n_shards, NFIELDS, a.stream)
-    _build.check(rc, "step plan", "step")
+    rc = _fn("step", "mt_step_run")(
+        ctypes.byref(a.pl), ctypes.byref(a.bk), _vp(sc.tab), _vp(sc.flags), _vp(ctl), a.n_shards, int(n_steps),
+        int(blocks), NFIELDS, a.stream)
+    _build.check(rc, "step run", "step")
 
 
-def launch_step_lanes(a: StepArgs, ctl=None) -> None:
-    """K1's lane and fork passes (after K2 filled sc.sha_digest)."""
-    sc = a.sc
-    rc = _fn("step", "mt_step_lanes")(
-        ctypes.byref(a.pl), ctypes.byref(a.bk), _vp(sc.tab), _vp(sc.slot), _vp(sc.sha_digest),
-        _vp(sc.fork_do), _vp(sc.fork_dest), _vp(ctl), NFIELDS, LANE_THREADS, a.stream)
-    _build.check(rc, "step lanes", "step")
+def step_run_info(dev) -> dict:
+    """K1's compiled resources on ``dev``: registers and local (spill and
+    stack) bytes per thread, static shared bytes and threads per block,
+    blocks resident per SM, SMs."""
+    out = (ctypes.c_int * 6)()
+    with torch.cuda.device(dev):
+        _build.check(_fn("step", "mt_step_run_info")(ctypes.cast(out, ctypes.c_void_p)), "step run info", "step")
+    keys = ("registers", "local_bytes", "shared_bytes", "threads_per_block", "blocks_per_sm", "sms")
+    return dict(zip(keys, list(out)))
 
 
 def launch_unsat(pool, st: StateBatch, ctl=None, out=None) -> torch.Tensor:

@@ -12,8 +12,10 @@ step also folds its retired opcodes into ``hist`` (K8, see
 ``engine.op_hist_update``), summed over every step of every round.
 
 On the card the reference's contract holds: ``run_fused`` queues
-``max_rounds x (steps_per_round K1 + K3 + K4)`` launches with no host
-sync, and the loop condition lives on the device in a control word
+``max_rounds x (K1 + K3 + K4)`` launches with no host sync, one K1
+launch running the round's ``steps_per_round`` steps (with stats, one K1
+and one K8 launch per step instead), and the loop condition lives on the
+device in a control word
 ``ctl = [r, continue]`` that K4 rewrites after each round. Every kernel
 reads it first and returns at once when the loop has ended, which is the
 reference's ``while_loop`` condition evaluated between rounds. The only
@@ -160,10 +162,12 @@ def run_fused(
         if with_stats and r:  # the epilogue moved lanes: a fresh snapshot
             for x, y in zip(snap, (s.code_id, s.pc, s.steps)):
                 x.copy_(y)
-        for _ in range(steps_per_round):
-            engine.step(cb, env, s, device=dev, ctl=ctl, inplace=True, args=args)
-            if with_stats:
+        if with_stats:  # K8 after every step: one K1 launch per step
+            for _ in range(steps_per_round):
+                engine.step(cb, env, s, device=dev, ctl=ctl, inplace=True, args=args)
                 engine.op_hist_update(cb, snap, s, hist, device=dev, args=k8)
+        else:  # the round's steps in one K1 launch
+            engine.step_n(cb, env, s, steps_per_round, device=dev, ctl=ctl, inplace=True, args=args)
         if with_solve:
             inloop_solve.unsat_mask(pool, s, device=dev, ctl=ctl, out=unsat)
         round_epilogue(cb, s, unsat, acc, pv, ctl, max_rounds, scratch)
@@ -272,8 +276,9 @@ def run_fused_mesh(
     i32[9 + n] (``decode_mesh_info``); ``hist`` sums over the shards and
     ``pruned_visited`` ORs over them, as the reference's psums do.
 
-    On the card ``max_rounds x (steps_per_round x K1 [+ K8] + K3 + K4 +
-    K10 + K11 + K4)`` launches are queued with no host sync; the round's
+    On the card ``max_rounds x (K1 + K3 + K4 + K10 + K11 + K4)`` launches
+    are queued with no host sync (with stats, ``steps_per_round x (K1 +
+    K8)`` in place of the one K1 launch); the round's
     control word is committed after the steal and its compaction, which
     run under it (the reference's body is round + steal). The caller
     fetches ``info`` once."""
@@ -305,10 +310,12 @@ def run_fused_mesh(
         if with_stats and r:  # the epilogue and the steal moved lanes
             for x, y in zip(snap, (s.code_id, s.pc, s.steps)):
                 x.copy_(y)
-        for _ in range(steps_per_round):
-            engine.step(cb, env, s, device=dev, ctl=ctl, inplace=True, args=args, n_shards=n)
-            if with_stats:
+        if with_stats:
+            for _ in range(steps_per_round):
+                engine.step(cb, env, s, device=dev, ctl=ctl, inplace=True, args=args, n_shards=n)
                 engine.op_hist_update(cb, snap, s, hist, device=dev, args=k8)
+        else:
+            engine.step_n(cb, env, s, steps_per_round, device=dev, ctl=ctl, inplace=True, args=args, n_shards=n)
         if with_solve:
             inloop_solve.unsat_mask(pool, s, device=dev, ctl=ctl, out=unsat)
         round_epilogue(cb, s, unsat, acc, pv, ctl, max_rounds, scratch, n, flags=0)

@@ -14,6 +14,8 @@ import os
 import numpy as np
 import pytest
 import torch
+from hypothesis import example, given, settings
+from hypothesis import strategies as hst
 
 import bench
 from mythril_tpu_torch.disassembler.asm import assemble
@@ -41,16 +43,22 @@ def _vp(t):
     return ctypes.c_void_p(t.data_ptr())
 
 
-def _emu_step(lib, cb, st):
+def _emu_k1(lib, cb, st, n_steps, n_shards=1, order=None, nthreads=128, ctl=None):
+    """One emulated K1 launch of ``n_steps`` steps on a copy of ``st``."""
     st = batch.StateBatch(*(x.clone() for x in st))
     sc = kernels.Scratch.get(torch.device("cpu"), st.pc.shape[0])
     pl = kernels.planes(st, cb.code.shape[0], cb.code.shape[1])
     bk = kernels.bank(cb)
-    rc = lib.emu_step(ctypes.byref(pl), ctypes.byref(bk), _vp(sc.tab), _vp(sc.slot), _vp(sc.fork_do),
-                      _vp(sc.fork_dest), _vp(sc.sha_active), _vp(sc.sha_off), _vp(sc.sha_avail),
-                      _vp(sc.sha_len), _vp(sc.sha_digest))
+    order = None if order is None else torch.as_tensor(order, dtype=torch.int32)
+    rc = lib.emu_step_run(ctypes.byref(pl), ctypes.byref(bk), _vp(sc.tab), _vp(sc.flags),
+                          _vp(ctl) if ctl is not None else None, n_shards, n_steps, nthreads,
+                          _vp(order) if order is not None else None)
     assert rc == 0
     return st
+
+
+def _emu_step(lib, cb, st):
+    return _emu_k1(lib, cb, st, 1)
 
 
 def _assert_same(a, b, where):
@@ -78,6 +86,89 @@ def test_step_lane_logic_matches_twin(emu, name):
         se = _emu_step(emu, cb, se)
         _assert_same(se, st, f"{name} step {i}")
     assert int(st.alive.sum()) > 4
+
+
+def _twin_slots(free, req, n):
+    """engine.step_plain's fork placement (its cumsum ranks per lane
+    block) as slot codes: the child lane, -1 (no request) or -2 (the
+    block has no free lane left: fork_no_slot)."""
+    L = free.shape[0]
+    per = L // n
+    lane = torch.arange(L)
+    base = (lane // per) * per
+    nfree = free.to(torch.int64).view(n, per).sum(1).repeat_interleave(per)
+    free_rank = (torch.cumsum(free.to(torch.int64).view(n, per), 1) - 1).reshape(L)
+    req_rank = (torch.cumsum(req.to(torch.int64).view(n, per), 1) - 1).reshape(L)
+    has_slot = req & (req_rank < nfree)
+    free_by_rank = torch.zeros(L, dtype=torch.int64)
+    free_by_rank[base[free] + free_rank[free]] = lane[free]
+    child = free_by_rank[base + req_rank.clamp(0, per - 1)]
+    return torch.where(has_slot, child, torch.where(req, -2, -1)).to(torch.int32)
+
+
+@settings(max_examples=60, deadline=None, database=None)
+@given(L=hst.sampled_from([8, 64, 512, 1024]), n=hst.sampled_from([1, 2, 8]), nthreads=hst.sampled_from([32, 128, 1024]),
+       p=hst.sampled_from([(0.0, 0.7), (0.5, 0.4), (0.1, 0.6), (1.0, 0.0), (0.3, 0.0), (0.05, 0.9)]),
+       seed=hst.integers(0, 2**32 - 1))
+@example(L=64, n=8, nthreads=128, p=(0.0, 0.7), seed=1)  # no free lane: every request SLOT_FULL
+@example(L=1024, n=1, nthreads=128, p=(0.05, 0.9), seed=2)  # more requests than free lanes
+def test_fork_rank_scan_matches_twin_cumsum(L, n, nthreads, p, seed):
+    """K1's rank (the scan in csrc/step.cuh, run thread by thread between
+    its barriers) against the twin's cumsum placement, on random lanes:
+    free, running with or without a fork request, or halted."""
+    lib = _build.host_emulation()
+    r = np.random.default_rng(seed)
+    p_free, p_req = p
+    u = r.random(L)
+    free = torch.as_tensor(u < p_free)
+    running = torch.as_tensor((u >= p_free) & (r.random(L) < 0.8))
+    req = running & torch.as_tensor(r.random(L) < p_req)
+    flags = (free.to(torch.uint8) | (req.to(torch.uint8) << 1) | (running.to(torch.uint8) << 2)).contiguous()
+    slot = torch.full((L,), 7, dtype=torch.int32)
+    any_running = torch.zeros(1, dtype=torch.int32)
+    assert lib.emu_fork_rank(L, n, _vp(flags), nthreads, _vp(slot), _vp(any_running)) == 0
+    want = _twin_slots(free, req, n)
+    assert torch.equal(slot, want), (slot != want).nonzero()[:4].tolist()
+    assert bool(any_running[0]) == bool(running.any())
+
+
+@pytest.mark.parametrize("name", ["stress", "bectoken"])
+def test_step_run_launch_matches_twin_steps(emu, name):
+    """One emulated K1 launch of 64 steps against 64 twin steps, every
+    plane equal, with blocks of 32 and 128 threads and the lanes' warps
+    in either order, and a stopped loop's launch touching nothing."""
+    cb, st = _inputs(name, 5)
+    want = st
+    for _ in range(64):
+        want = engine.step_plain(cb, want)
+    assert int(want.alive.sum()) > int(st.alive.sum())  # forks happened
+    backwards = list(range(st.pc.shape[0]))[::-1]
+    for nthreads, order in ((128, None), (32, None), (128, backwards)):
+        got = _emu_k1(emu, cb, st, 64, order=order, nthreads=nthreads)
+        _assert_same(got, want, f"{name} nthreads={nthreads} order={order}")
+    stopped = _emu_k1(emu, cb, st, 64, ctl=torch.tensor([3, 0, 0, 0], dtype=torch.int32))
+    _assert_same(stopped, st, f"{name} stopped")
+
+
+@pytest.mark.parametrize("n_shards", [1, 2])
+def test_fork_copy_before_child_lane_pass(emu, n_shards):
+    """A step where several parents fork: the warps' order decides
+    whether a parent's copy lands in its child before the child's own
+    lane pass. The child must be skipped by the step's free flag either
+    way, so every order gives the twin's step, with forks placed over
+    all lanes or per lane block."""
+    cb, st = _inputs("stress", 5)
+    for _ in range(60):
+        nxt = engine.step_plain(cb, st, n_shards)
+        children = (~st.alive & nxt.alive).nonzero().flatten().tolist()
+        if len(children) >= 2:
+            break
+        st = nxt
+    assert len(children) >= 2
+    alive_first = st.alive.nonzero().flatten().tolist() + (~st.alive).nonzero().flatten().tolist()
+    for order in (alive_first, alive_first[::-1], None):
+        got = _emu_k1(emu, cb, st, 1, n_shards, order=order)
+        _assert_same(got, nxt, f"order {order}")
 
 
 def test_keccak_logic_matches_twin_and_host(emu):
@@ -142,12 +233,14 @@ def _emu_fused(lib, cb, st, max_rounds, steps_per_round, with_solve, pool, with_
     sc = kernels.Scratch.get(torch.device("cpu"), L)
     for _ in range(max_rounds):
         snap = engine.snapshot(s)
-        for _ in range(steps_per_round):
-            if ctl[1]:
-                for x, y in zip(s, _emu_step(lib, cb, s)):
+        if with_stats:  # one K1 launch and one K8 launch per step
+            for _ in range(steps_per_round):
+                for x, y in zip(s, _emu_k1(lib, cb, s, 1, ctl=ctl)):
                     x.copy_(y)
-            if with_stats:
                 _emu_hist(lib, cb, snap, s, hist, ctl)
+        else:  # the round in one K1 launch
+            for x, y in zip(s, _emu_k1(lib, cb, s, steps_per_round, ctl=ctl)):
+                x.copy_(y)
         unsat = torch.zeros(L, dtype=torch.bool)
         if with_solve and ctl[1]:
             pl = kernels.planes(s, 1, cb.code.shape[1])
@@ -205,9 +298,8 @@ def _emu_run(lib, cb, st, max_steps, with_stats):
     snap = engine.snapshot(s)
     for _ in range(max_steps):
         assert lib.emu_slice_ctl(_vp(s.alive), _vp(s.status), s.alive.shape[0], _vp(ctl), max_steps) == 0
-        if ctl[1]:
-            for x, y in zip(s, _emu_step(lib, cb, s)):
-                x.copy_(y)
+        for x, y in zip(s, _emu_k1(lib, cb, s, 1, ctl=ctl)):
+            x.copy_(y)
         if with_stats:
             _emu_hist(lib, cb, snap, s, hist, ctl)
     return s, hist, ctl

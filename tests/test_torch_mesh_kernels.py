@@ -1,7 +1,7 @@
 """The mesh kernels' own logic against the plain twins, on the CPU.
 
 K10 (``mesh_plan``), K11 (``mesh_steal``), K12 (``mesh_deal``) and the
-shard count of K1's plan and K4's compaction are plain C++ over pointers
+shard count of K1's fork rank and K4's compaction are plain C++ over pointers
 in ``mythril_tpu_torch/csrc/{mesh,step,megakernel}.cuh``; compiled as
 host C++ (``csrc/host_emu.cpp``) with loops standing in for the grids,
 they run here on CPU tensors and are held bit for bit against the twins,
@@ -64,16 +64,20 @@ def _inputs(name, seed):
     return cb, batch.StateBatch(*(x[SPREAD] for x in st))
 
 
-def _emu_step(lib, cb, st, n):
+def _emu_k1(lib, cb, st, n, n_steps, ctl=None, nthreads=128):
+    """One emulated K1 launch of ``n_steps`` steps over ``n`` lane blocks."""
     st = _clone(st)
     sc = kernels.Scratch.get(torch.device("cpu"), st.pc.shape[0])
     pl = kernels.planes(st, cb.code.shape[0], cb.code.shape[1])
     bk = kernels.bank(cb)
-    rc = lib.emu_step_sharded(ctypes.byref(pl), ctypes.byref(bk), _vp(sc.tab), _vp(sc.slot), _vp(sc.fork_do),
-                              _vp(sc.fork_dest), _vp(sc.sha_active), _vp(sc.sha_off), _vp(sc.sha_avail),
-                              _vp(sc.sha_len), _vp(sc.sha_digest), n)
+    rc = lib.emu_step_run(ctypes.byref(pl), ctypes.byref(bk), _vp(sc.tab), _vp(sc.flags), _vp(ctl), n, n_steps,
+                          nthreads, None)
     assert rc == 0
     return st
+
+
+def _emu_step(lib, cb, st, n):
+    return _emu_k1(lib, cb, st, n, 1)
 
 
 def _emu_epilogue(lib, cb, s, scratch, unsat, acc, pv, ctl, max_rounds, n, flags, gate=None):
@@ -136,6 +140,21 @@ def test_sharded_step_logic_matches_twin(emu, name, n):
         se = _emu_step(emu, cb, se, n)
         _assert_same(se, st, f"{name} n={n} step {i}")
     assert int(st.alive.sum()) > 4
+
+
+@pytest.mark.parametrize("name", sorted(SOURCES))
+def test_sharded_step_run_launch_matches_twin(emu, name):
+    """One emulated K1 launch of 64 steps over 8 lane blocks against 64
+    twin steps with the same shard count, with blocks of 128 and 32
+    threads: forks land inside their own block or trap (SLOT_FULL)."""
+    cb, st = _inputs(name, 5)
+    want = st
+    for _ in range(64):
+        want = engine.step_plain(cb, want, 8)
+    assert int(want.alive.sum()) > int(st.alive.sum())
+    for nthreads in (128, 32):
+        got = _emu_k1(emu, cb, st, 8, 64, nthreads=nthreads)
+        _assert_same(got, want, f"{name} n=8 nthreads={nthreads}")
 
 
 @pytest.mark.parametrize("seed", range(6))
@@ -242,14 +261,16 @@ def _emu_fused_mesh(lib, cb, st, n, max_rounds, steps_per_round, with_solve, poo
     for r in range(max_rounds):
         if r:
             snap = engine.snapshot(s)
-        for _ in range(steps_per_round):
-            if ctl[1]:
-                for x, y in zip(s, _emu_step(lib, cb, s, n)):
+        if with_stats:  # one K1 launch and one K8 launch per step
+            for _ in range(steps_per_round):
+                for x, y in zip(s, _emu_k1(lib, cb, s, n, 1, ctl=ctl)):
                     x.copy_(y)
-            if with_stats:
                 CL = cb.code.shape[1]
                 assert lib.emu_op_hist(_vp(cb.code), 1, CL, _vp(snap.code_id), _vp(snap.pc), _vp(snap.steps),
                                        _vp(s.code_id), _vp(s.pc), _vp(s.steps), L, _vp(hist), _vp(ctl), 1) == 0
+        else:  # the round in one K1 launch
+            for x, y in zip(s, _emu_k1(lib, cb, s, n, steps_per_round, ctl=ctl)):
+                x.copy_(y)
         if with_solve and ctl[1]:
             pl = kernels.planes(s, 1, cb.code.shape[1])
             assert lib.emu_unsat(ctypes.byref(pl), ctypes.byref(kernels.pool_struct(pool)), _vp(unsat)) == 0
