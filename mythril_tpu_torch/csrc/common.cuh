@@ -11,9 +11,11 @@
 #ifdef MT_HOST_EMU
 #define MT_DEV static inline
 #define MT_DEVM inline
+#define MT_HD static inline
 #else
 #define MT_DEV __device__ __forceinline__
 #define MT_DEVM __device__ __forceinline__
+#define MT_HD __host__ __device__ __forceinline__
 #endif
 
 // StateBatch fields, in StateBatch._fields order (batch.py). The Python

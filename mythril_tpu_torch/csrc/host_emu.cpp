@@ -1,7 +1,7 @@
 // Host emulation of the kernels' lane logic, for the CPU tests: the same
 // headers compiled as plain C++ (-DMT_HOST_EMU), with loops over lanes
-// standing in for the grids (and K1's rank run thread by thread between
-// its barriers) of step.cu, inloop.cu, megakernel.cu,
+// standing in for the grids (and K1's rank, K3 and K4 run thread by
+// thread between their barriers) of step.cu, inloop.cu, megakernel.cu,
 // keccak.cu, solve.cu, transfer.cu, hist.cu, slice.cu and mesh.cu. Built with g++ by
 // tests/test_torch_kernel_logic.py and tests/test_torch_mesh_kernels.py; never used on the card.
 #include <stdint.h>
@@ -17,15 +17,27 @@
 
 #include <vector>
 
+// Runs fn(i) for i in [0, n), ascending or (reverse) descending: the
+// threads of one part of a kernel, between two of its barriers. A part
+// whose threads read what another thread of the same part writes gives
+// different results in the two orders.
+template <class F>
+static void each(int n, int reverse, F fn) {
+  if (reverse)
+    for (int i = n - 1; i >= 0; --i) fn(i);
+  else
+    for (int i = 0; i < n; ++i) fn(i);
+}
+
 extern "C" {
 
 // K1's fork rank in one block of nthreads "threads", run thread by
 // thread between the block's barriers (step.cu, part (b)).
-static void emu_rank_block(int L, const uint8_t* flags, RankShared& rs, int nthreads) {
-  for (int t = 0; t < nthreads; ++t) rank_sum_chunk(L, flags, rs, t, nthreads);
-  rank_scan_warps(rs, nthreads);
-  for (int t = 0; t < nthreads; ++t) rank_prefix(L, flags, rs, t, nthreads);
-  for (int t = 0; t < nthreads; ++t) rank_scatter(L, flags, rs, t, nthreads);
+static void emu_rank_block(int L, const uint8_t* flags, StepShared& ss, int nthreads) {
+  for (int t = 0; t < nthreads; ++t) rank_sum_chunk(L, flags, ss.rs, t, nthreads);
+  rank_scan_warps(ss.rs, nthreads);
+  for (int t = 0; t < nthreads; ++t) rank_prefix(L, flags, ss.rs, t, nthreads);
+  for (int t = 0; t < nthreads; ++t) rank_scatter(L, flags, ss, t, nthreads);
 }
 
 static bool emu_rank_ok(int L, int n_shards, int nthreads) {
@@ -38,10 +50,10 @@ static bool emu_rank_ok(int L, int n_shards, int nthreads) {
 int emu_fork_rank(int L, int n_shards, const uint8_t* flags, int nthreads, int32_t* slot,
                   int32_t* any_running) {
   if (!emu_rank_ok(L, n_shards, nthreads)) return 2;
-  std::vector<RankShared> rs(1);
-  emu_rank_block(L, flags, rs[0], nthreads);
-  for (int l = 0; l < L; ++l) slot[l] = fork_slot(L, L / n_shards, flags, rs[0], l);
-  *any_running = rank_any_running(rs[0], L);
+  std::vector<StepShared> ss(1);
+  emu_rank_block(L, flags, ss[0], nthreads);
+  for (int l = 0; l < L; ++l) slot[l] = fork_slot(L, L / n_shards, flags, ss[0], l);
+  *any_running = rank_any_running(ss[0].rs, L);
   return 0;
 }
 
@@ -56,16 +68,16 @@ int emu_step_run(const Planes* Pp, const Bank* Bp, const int32_t* tab, uint8_t* 
   const int L = P.L;
   if (!emu_rank_ok(L, n_shards, nthreads)) return 2;
   if (ctl && !ctl[1]) return 0;
-  std::vector<RankShared> rs(1);
+  std::vector<StepShared> ss(1);
   const int per = L / n_shards;
   for (int step = 0; step < n_steps; ++step) {
     for (int l = 0; l < L; ++l) flags[l] = lane_flags(P, B, tab, l);
-    emu_rank_block(L, flags, rs[0], nthreads);
-    if (!rank_any_running(rs[0], L)) return 0;
+    emu_rank_block(L, flags, ss[0], nthreads);
+    if (!rank_any_running(ss[0].rs, L)) return 0;
     for (int i = 0; i < L; ++i) {
       const int lane = order ? order[i] : i;
       int dest;
-      const int child = fork_slot(L, per, flags, rs[0], lane);
+      const int child = fork_slot(L, per, flags, ss[0], lane);
       if (!lane_pass(P, B, tab, flags, child, lane, &dest)) continue;
       copy_row_part(P, P, lane, child, 0, 1);
       fork_child_edits(P, child, dest);
@@ -74,48 +86,102 @@ int emu_step_run(const Planes* Pp, const Bank* Bp, const int32_t* tab, uint8_t* 
   return 0;
 }
 
-// K3
-int emu_unsat(const Planes* P, const Pool* pool, uint8_t* out) {
-  for (int l = 0; l < P->L; ++l) out[l] = unsat_lane(*P, *pool, l) ? 1 : 0;
+// K3 (inloop.cu): the pool staged by a block of 128 threads, then one
+// warp per lane, each part of the warp's work run thread by thread
+// between its __syncwarp()s; the warp's shared slice is filled with a
+// pattern before every lane, so a read of an entry that was not staged
+// shows.
+int emu_unsat(const Planes* Pp, const Pool* pool, uint8_t* out, int reverse) {
+  const Planes& P = *Pp;
+  if (pool->V > POOL_MAX_VARS || pool->V <= 0 || pool->C <= 0 || pool->W <= 0 || P.P <= 0) return 2;
+  const int64_t nbytes = unsat_warp_bytes(P.P, pool->V);
+  std::vector<mt_u4> pool_mem(unsat_pool_bytes(pool->V, pool->C, pool->W) / 16), mem(nbytes / 16);
+  Pool sp = *pool;
+  each(128, reverse, [&](int t) { sp = unsat_stage_pool(*pool, (uint8_t*)pool_mem.data(), t, 128); });
+  uint8_t* base = (uint8_t*)mem.data();
+  const UnsatWarp w = unsat_warp(base, P.P, pool->V);
+  for (int lane = 0; lane < P.L; ++lane) {
+    bool hit = false;
+    if (unsat_eligible(P, lane)) {
+      for (int64_t i = 0; i < nbytes; ++i) base[i] = (uint8_t)(0xA5 ^ i);
+      each(32, reverse, [&](int t) { unsat_stage(P, lane, w, t); });
+      each(32, reverse, [&](int t) { hit |= unsat_r13(P.P, w, t); });
+      if (!hit) {
+        each(32, reverse, [&](int t) { unsat_seed(sp, P.P, w, t); });
+        for (int sweep = 0; sweep < PROP_SWEEPS; ++sweep) {
+          each(32, reverse, [&](int t) { hit |= unsat_clauses(sp, w, t); });
+          each(32, reverse, [&](int t) { hit |= unsat_apply(sp, w, t); });
+        }
+      }
+    }
+    out[lane] = hit ? 1 : 0;
+  }
   return 0;
 }
 
-// K4: plan, gather into scratch with folds, copy back, commit ctl
-// (megakernel.cu, with its shard count, flags and gate)
-int emu_epilogue_sharded(const Planes* Pp, const Planes* Sp, const uint8_t* prune_revert,
-                         const uint8_t* unsat, int32_t* acc, int32_t* order, uint8_t* dying,
-                         uint8_t* pv, int32_t* ctl, int max_rounds, int n_shards, int flags,
-                         const int32_t* gate) {
+// K4 (megakernel.cu): one cooperative launch of nblocks blocks of
+// nthreads threads, its three parts run thread by thread between the grid
+// barriers, in either order. The blocks' atomics are one sum: u32
+// addition does not care about order.
+int emu_epilogue(const Planes* Pp, const Planes* Sp, const uint8_t* prune_revert, const uint8_t* unsat,
+                 int32_t* acc, int32_t* order, uint8_t* dying, uint8_t* lflags, uint8_t* pv, int32_t* ctl,
+                 int max_rounds, int n_shards, int flags, const int32_t* gate, int nblocks, int nthreads,
+                 int reverse) {
   const Planes& P = *Pp;
   const Planes& Sc = *Sp;
-  if (P.L > 1024) return 1;
-  if (n_shards < 1 || P.L % n_shards != 0) return 2;
+  const int L = P.L;
+  if (L <= 0 || L > EPI_MAX_LANES) return 1;
+  if (n_shards < 1 || L % n_shards != 0) return 2;
+  if (nblocks < 1 || nthreads < 32 || nthreads % 32 || nthreads > 32 * EPI_MAX_WARPS) return 3;
   if (!ctl[1]) return 0;
-  if (!gate || gate[0]) {
-    const bool compact_only = flags & EPI_COMPACT_ONLY;
-    uint8_t dead_s[1024], dying_s[1024];
-    for (int l = 0; l < P.L; ++l) {
-      bool dead = false;
-      dying_s[l] = !compact_only && dying_of(P, prune_revert, unsat, l, &dead) ? 1 : 0;
-      dead_s[l] = dead ? 1 : 0;
-    }
-    epi_plan_serial(P, dead_s, dying_s, acc, order, dying, ctl, max_rounds, n_shards, !compact_only);
-    for (int d = 0; d < P.L; ++d) copy_row_part(P, Sc, order[d], d, 0, 1);
-    for (int d = 0; d < P.L; ++d) epi_fold_lane(P, Sc, order, dying, pv, d, 0, 1);
-    for (int d = 0; d < P.L; ++d) copy_row_part(Sc, P, d, d, 0, 1);
+  if (gate && !gate[0]) {
+    if (flags & EPI_COMMIT) epi_commit(ctl);
+    return 0;
   }
-  if (flags & EPI_COMMIT) {
-    ctl[0] = ctl[2];
-    ctl[1] = ctl[3];
-  }
+  const bool compact_only = flags & EPI_COMPACT_ONLY;
+  const int per = L / n_shards, G = nblocks * nthreads, wpb = nthreads / 32, nwarps = nblocks * wpb;
+  std::vector<EpiShared> sh(nblocks);
+  each(nblocks, reverse, [&](int b) {
+    each(nthreads, reverse, [&](int t) { epi_units_fields(P, Sc, sh[b], t, nthreads); });
+    epi_units_prefix(sh[b]);
+  });
+  // (1)
+  uint32_t total[4] = {0, 0, 0, 0};
+  each(G, reverse, [&](int gtid) {
+    uint32_t f[4];
+    epi_plan_lanes(P, prune_revert, unsat, lflags, dying, compact_only, gtid, G, f);
+    for (int k = 0; k < 4; ++k) total[k] += f[k];
+  });
+  if (!compact_only)
+    for (int k = 0; k < 4; ++k) acc[k] = (int32_t)((uint32_t)acc[k] + total[k]);
+  // (2)
+  each(nblocks, reverse, [&](int b) {
+    RankShared& rs = sh[b].rs;
+    each(nthreads, reverse, [&](int t) { rank_sum_chunk(L, lflags, rs, t, nthreads); });
+    rank_scan_warps(rs, nthreads);
+    each(nthreads, reverse, [&](int t) { rank_prefix(L, lflags, rs, t, nthreads); });
+    each(nthreads, reverse, [&](int t) { epi_scatter(L, per, lflags, sh[b], t, nthreads); });
+  });
+  each(G, reverse, [&](int gtid) {
+    for (int d = gtid; d < L; d += G) order[d] = sh[gtid / nthreads].src_of[d];
+  });
+  if (!compact_only) epi_stage_ctl(sh[0].rs, L, ctl, max_rounds);
+  const int wpr = nwarps >= L ? nwarps / L : 1;
+  each(nwarps, reverse, [&](int gw) {
+    for (int u = gw; u < L * wpr; u += nwarps)
+      each(32, reverse, [&](int wl) {
+        epi_gather_unit(P, lflags, sh[gw / wpb], pv, u / wpr, (u % wpr) * 32 + wl, wpr * 32);
+      });
+  });
+  // (3)
+  each(nwarps, reverse, [&](int gw) {
+    for (int u = gw; u < L * wpr; u += nwarps)
+      each(32, reverse, [&](int wl) {
+        epi_place_unit(lflags, sh[gw / wpb], u / wpr, (u % wpr) * 32 + wl, wpr * 32);
+      });
+  });
+  if (flags & EPI_COMMIT) epi_commit(ctl);
   return 0;
-}
-
-int emu_epilogue(const Planes* Pp, const Planes* Sp, const uint8_t* prune_revert,
-                 const uint8_t* unsat, int32_t* acc, int32_t* order, uint8_t* dying, uint8_t* pv,
-                 int32_t* ctl, int max_rounds) {
-  return emu_epilogue_sharded(Pp, Sp, prune_revert, unsat, acc, order, dying, pv, ctl, max_rounds,
-                              1, EPI_COMMIT, nullptr);
 }
 
 // K2, flat rows

@@ -44,7 +44,7 @@ __global__ void __launch_bounds__(RUN_THREADS)
                     int n_shards, int n_steps) {
   if (ctl && !ctl[1]) return;
   cg::grid_group grid = cg::this_grid();
-  __shared__ RankShared rs;
+  __shared__ StepShared ss;
   const int tid = threadIdx.x, nt = blockDim.x, wl = tid & 31;
   const int L = P.L, per = L / n_shards;
   const int gtid = blockIdx.x * nt + tid, gthreads = gridDim.x * nt;
@@ -54,20 +54,20 @@ __global__ void __launch_bounds__(RUN_THREADS)
     for (int l = gtid; l < L; l += gthreads) flags[l] = lane_flags(P, B, tab, l);
     grid.sync();
     // (b)
-    rank_sum_chunk(L, flags, rs, tid, nt);
+    rank_sum_chunk(L, flags, ss.rs, tid, nt);
     __syncthreads();
-    rank_scan_warp(rs, tid);
+    rank_scan_warp(ss.rs, tid);
     __syncthreads();
-    rank_prefix(L, flags, rs, tid, nt);
+    rank_prefix(L, flags, ss.rs, tid, nt);
     __syncthreads();
-    rank_scatter(L, flags, rs, tid, nt);
+    rank_scatter(L, flags, ss, tid, nt);
     __syncthreads();
-    if (!rank_any_running(rs, L)) return;
+    if (!rank_any_running(ss.rs, L)) return;
     // (c)
     for (int lane = gwarp; lane < L; lane += nwarps) {
       int child = SLOT_NONE, dest = 0, fork = 0;
       if (wl == 0) {
-        child = fork_slot(L, per, flags, rs, lane);
+        child = fork_slot(L, per, flags, ss, lane);
         fork = lane_pass(P, B, tab, flags, child, lane, &dest);
       }
       if (__shfl_sync(0xffffffffu, fork, 0)) {

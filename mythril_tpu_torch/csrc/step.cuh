@@ -5,6 +5,7 @@
 #pragma once
 #include "common.cuh"
 #include "keccak.cuh"
+#include "scan.cuh"
 #include "symtape.cuh"
 #include "words.cuh"
 
@@ -675,32 +676,16 @@ MT_DEV void fork_child_edits(const Planes& P, int child, int dest) {
 // lanes serves every shard count.
 //
 // Each lane's flags (lane_flags) are written to global scratch; then the
-// threads of a block scan them in four parts split at __syncthreads(),
-// each a function of (tid, nthreads) that the host emulation runs thread
-// by thread: chunk sums, a Kogge-Stone scan of those within each warp
-// (warp shuffles on the card, the same steps over an array on the host),
-// the per-lane prefixes, and the scatter of free lanes by rank. No thread
-// walks more than ceil(L / nthreads) lanes.
+// threads of a block scan them (scan.cuh: chunk sums, a warp scan, the
+// per-lane prefixes), and part 4 below scatters the free lanes by rank.
+// No thread walks more than ceil(L / nthreads) lanes.
 
-#define RANK_MAX_LANES 1024
-#define RANK_MAX_THREADS 1024
 #define LF_FREE 1
 #define LF_REQ 2
 #define LF_RUN 4
 
-// free | req << 16 | running << 32: three counts of at most 1024 lanes
-MT_DEV uint64_t lf_count(uint8_t f) {
-  return (uint64_t)(f & 1) | ((uint64_t)((f >> 1) & 1) << 16) | ((uint64_t)((f >> 2) & 1) << 32);
-}
-MT_DEV int lf_free(uint64_t c) { return (int)(c & 0xFFFF); }
-MT_DEV int lf_req(uint64_t c) { return (int)((c >> 16) & 0xFFFF); }
-
-struct RankShared {
-  uint64_t part[RANK_MAX_THREADS];  // per thread: its chunk's counts, then their exclusive scan in its warp
-  uint64_t wsum[RANK_MAX_THREADS / 32];  // per warp: its total
-  uint64_t pre[RANK_MAX_LANES + 1];  // per lane: the counts over every lane before it; pre[L]: totals
-  int32_t free_at[RANK_MAX_LANES];  // global free rank -> lane
-};
+MT_DEV int lf_free(uint64_t c) { return lf_n0(c); }
+MT_DEV int lf_req(uint64_t c) { return lf_n1(c); }
 
 // A lane's pre-step flags: free (not alive), fork request, running.
 MT_DEV uint8_t lane_flags(const Planes& P, const Bank& B, const int32_t* tab, int lane) {
@@ -711,77 +696,27 @@ MT_DEV uint8_t lane_flags(const Planes& P, const Bank& B, const int32_t* tab, in
   return f;
 }
 
-MT_DEV void rank_chunk(int L, int tid, int nthreads, int* lo, int* hi) {
-  int c = (L + nthreads - 1) / nthreads;
-  *lo = tid * c < L ? tid * c : L;
-  *hi = *lo + c < L ? *lo + c : L;
-}
-
-// part 1: each thread's chunk sum
-MT_DEV void rank_sum_chunk(int L, const uint8_t* flags, RankShared& rs, int tid, int nthreads) {
-  int lo, hi;
-  rank_chunk(L, tid, nthreads, &lo, &hi);
-  uint64_t s = 0;
-  for (int l = lo; l < hi; ++l) s += lf_count(flags[l]);
-  rs.part[tid] = s;
-}
-
-// part 2: exclusive scan of part[] within each warp, warp totals to wsum
-#ifdef MT_HOST_EMU
-static void rank_scan_warps(RankShared& rs, int nthreads) {
-  for (int w = 0; w * 32 < nthreads; ++w) {
-    uint64_t own[32], v[32], up[32];
-    for (int i = 0; i < 32; ++i) own[i] = v[i] = rs.part[w * 32 + i];
-    for (int d = 1; d < 32; d <<= 1) {  // __shfl_up_sync(v, d) on every lane at once
-      for (int i = 0; i < 32; ++i) up[i] = i >= d ? v[i - d] : 0;
-      for (int i = 0; i < 32; ++i) v[i] += up[i];
-    }
-    for (int i = 0; i < 32; ++i) rs.part[w * 32 + i] = v[i] - own[i];
-    rs.wsum[w] = v[31];
-  }
-}
-#else
-__device__ __forceinline__ void rank_scan_warp(RankShared& rs, int tid) {
-  const int wl = tid & 31;
-  uint64_t own = rs.part[tid], v = own;
-  for (int d = 1; d < 32; d <<= 1) {
-    uint64_t up = __shfl_up_sync(0xffffffffu, (unsigned long long)v, d);
-    if (wl >= d) v += up;
-  }
-  rs.part[tid] = v - own;
-  if (wl == 31) rs.wsum[tid >> 5] = v;
-}
-#endif
-
-// part 3: the per-lane exclusive prefixes; the last thread writes pre[L]
-MT_DEV void rank_prefix(int L, const uint8_t* flags, RankShared& rs, int tid, int nthreads) {
-  uint64_t x = rs.part[tid];
-  for (int w = 0; w < (tid >> 5); ++w) x += rs.wsum[w];
-  int lo, hi;
-  rank_chunk(L, tid, nthreads, &lo, &hi);
-  for (int l = lo; l < hi; ++l) {
-    rs.pre[l] = x;
-    x += lf_count(flags[l]);
-  }
-  if (tid == nthreads - 1) rs.pre[L] = x;
-}
+// A block's shared state for the rank: the scan, and the free lanes by
+// global free rank.
+struct StepShared {
+  RankShared rs;
+  int32_t free_at[RANK_MAX_LANES];
+};
 
 // part 4: free lanes by global free rank
-MT_DEV void rank_scatter(int L, const uint8_t* flags, RankShared& rs, int tid, int nthreads) {
+MT_DEV void rank_scatter(int L, const uint8_t* flags, StepShared& ss, int tid, int nthreads) {
   for (int l = tid; l < L; l += nthreads)
-    if (flags[l] & LF_FREE) rs.free_at[lf_free(rs.pre[l])] = l;
+    if (flags[l] & LF_FREE) ss.free_at[lf_free(ss.rs.pre[l])] = l;
 }
 
-// after part 4: a lane's slot code, and whether any lane runs
-MT_DEV int fork_slot(int L, int per, const uint8_t* flags, const RankShared& rs, int l) {
+// after part 4: a lane's slot code
+MT_DEV int fork_slot(int L, int per, const uint8_t* flags, const StepShared& ss, int l) {
   if (!(flags[l] & LF_REQ)) return SLOT_NONE;
   int base = l / per * per;
-  uint64_t pb = rs.pre[base], pe = rs.pre[base + per];
-  int r = lf_req(rs.pre[l]) - lf_req(pb);
-  return r < lf_free(pe) - lf_free(pb) ? rs.free_at[lf_free(pb) + r] : SLOT_FULL;
+  uint64_t pb = ss.rs.pre[base], pe = ss.rs.pre[base + per];
+  int r = lf_req(ss.rs.pre[l]) - lf_req(pb);
+  return r < lf_free(pe) - lf_free(pb) ? ss.free_at[lf_free(pb) + r] : SLOT_FULL;
 }
-
-MT_DEV bool rank_any_running(const RankShared& rs, int L) { return (rs.pre[L] >> 32) != 0; }
 
 // The lane pass of one lane, by its owner, after the rank: a lane that
 // was free when the step began is skipped. It may already hold a fork

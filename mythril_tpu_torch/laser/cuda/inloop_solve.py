@@ -13,12 +13,15 @@ The reference folds the forced literals back onto the variables with a
 bool-as-f32 matmul; both the twin and the kernel fold them with boolean
 ORs, which is the same function exactly.
 
-Kernel (``csrc/inloop.cu``): one thread per lane; the lane's P path
-entries and its V-entry assignment live in local memory, the pool is
-read from global memory (it is small and shared by every lane, so it
-stays in L1/L2). Bound on the H100: operations — R1/R3 are P^2 compares
-and each sweep walks C x W literals — but at the main path's shapes the
-whole kernel is a few microseconds of latency.
+Kernel (``csrc/inloop.cu``): one warp per lane. The warp stages the
+lane's P path entries and their tape nodes in shared memory, tests R1/R3
+with each thread taking its entries against all of them, seeds the
+V-entry assignment in shared memory, and runs each sweep with each
+thread taking its clauses against the sweep-start assignment, the
+forced literals applied by each var's owner after a warp barrier. Each
+block first copies the pool (small and shared by every lane) into its
+shared memory. Bound on the H100: bytes, below a launch's own latency at
+the main path's shapes.
 """
 
 from typing import NamedTuple
@@ -138,11 +141,13 @@ def unsat_mask_plain(pool: InloopPool, s: StateBatch) -> torch.Tensor:
     return (r1 | r3 | conflict) & s.alive & (s.status == RUNNING)
 
 
-def unsat_mask(pool: InloopPool, s: StateBatch, device="cuda", ctl=None, out=None) -> torch.Tensor:
+def unsat_mask(pool: InloopPool, s: StateBatch, device="cuda", ctl=None, out=None, args=None) -> torch.Tensor:
     """bool[L]: RUNNING lanes whose path condition is provably UNSAT.
 
     ``ctl`` (CUDA only) is the fused loop's control word: the kernel
-    leaves ``out`` untouched once the loop has ended."""
+    leaves ``out`` untouched once the loop has ended. ``args`` (CUDA
+    only) is a ``kernels.UnsatArgs`` a loop built once for these
+    arguments."""
     _build.check_on(device, s.path_id, pool.var_h1)
     if s.path_id.device.type == "cpu":
         return unsat_mask_plain(pool, s)
@@ -150,4 +155,4 @@ def unsat_mask(pool: InloopPool, s: StateBatch, device="cuda", ctl=None, out=Non
 
     global launches
     launches += 1
-    return kernels.launch_unsat(pool, s, ctl, out)
+    return kernels.launch_unsat(pool, s, ctl, out, args)

@@ -49,19 +49,26 @@ def _checked(t: torch.Tensor, name: str, dtype: torch.dtype, dev) -> torch.Tenso
     return t
 
 
+_PLANE_DTYPES = []  # torch dtype per StateBatch field, filled at first use
+
+
 def planes(st: StateBatch, n_codes: int, code_len: int) -> Planes:
     from mythril_tpu_torch.laser.cuda import convert
 
+    if not _PLANE_DTYPES:
+        _PLANE_DTYPES.extend(convert.torch_dtype(_DTYPES[name]) for name in StateBatch._fields)
     dev = st.pc.device
     L = st.pc.shape[0]
     D = 16
     pl = Planes()
-    for i, name in enumerate(StateBatch._fields):
-        t = _checked(getattr(st, name), name, convert.torch_dtype(_DTYPES[name]), dev)
+    p, rb = pl.p, pl.row_bytes
+    for i, t in enumerate(st):
+        if t.dtype != _PLANE_DTYPES[i] or t.device != dev or not t.is_contiguous():
+            _checked(t, StateBatch._fields[i], _PLANE_DTYPES[i], dev)  # raises, naming the plane
         if t.shape[0] != L:
-            raise _build.KernelError(f"{name} is not lane-major")
-        pl.p[i] = t.data_ptr()
-        pl.row_bytes[i] = t[0].numel() * t.element_size() if t.dim() > 1 else t.element_size()
+            raise _build.KernelError(f"{StateBatch._fields[i]} is not lane-major")
+        p[i] = t.data_ptr()
+        rb[i] = t.stride(0) * t.element_size() if t.dim() > 1 else t.element_size()
     if st.visited.shape[1] != code_len:
         raise _build.KernelError("visited width differs from the code bank's code_len")
     pl.L, pl.S, pl.M, pl.C = L, st.stack.shape[1] // D, st.memory.shape[1], st.calldata.shape[1]
@@ -108,14 +115,16 @@ def op_tables(dev) -> torch.Tensor:
 
 class Scratch:
     """Per-(device, L) scratch buffers for the step and the epilogue:
-    K1's per-step lane flags, K4's order and dying masks. Shared by every
-    loop on the device, which run one at a time per stream."""
+    K1's per-step lane flags, K4's plan flags, order and dying mask.
+    Shared by every loop on the device, which run one at a time per
+    stream."""
 
     _cache = {}
 
     def __init__(self, dev, L):
         self.tab = op_tables(dev)
         self.flags = torch.zeros(L, dtype=torch.uint8, device=dev)
+        self.eflags = torch.zeros(L, dtype=torch.uint8, device=dev)
         self.order = torch.empty(L, dtype=torch.int32, device=dev)
         self.dying = torch.empty(L, dtype=torch.uint8, device=dev)
 
@@ -135,7 +144,9 @@ _SIGS = {
     ("step", "mt_step_run"): [_P(Planes), _P(Bank)] + [_V] * 3 + [_I] * 4 + [_V],
     ("step", "mt_step_run_info"): [_V],
     ("inloop", "mt_unsat_mask"): [_P(Planes), _P(Pool), _V, _V, _I, _V],
-    ("megakernel", "mt_round_epilogue"): [_P(Planes), _P(Planes)] + [_V] * 7 + [_I, _I, _I, _V, _I, _V],
+    ("inloop", "mt_unsat_mask_info"): [_V],
+    ("megakernel", "mt_round_epilogue"): [_P(Planes), _P(Planes)] + [_V] * 8 + [_I, _I, _I, _V, _I, _V],
+    ("megakernel", "mt_round_epilogue_info"): [_V],
     ("solve", "mt_solve"): [_V] * 7 + [_I] * 4 + [ctypes.c_uint32, _V],
     ("transfer", "mt_unpack"): [_V, _V, _I, ctypes.c_int64, _V],
     ("transfer", "mt_pack"): [_V, _V, _I, ctypes.c_int64, _V],
@@ -198,60 +209,132 @@ def launch_step_run(a: StepArgs, n_steps: int, ctl=None, blocks: int = 0) -> Non
     _build.check(rc, "step run", "step")
 
 
+def _kernel_info(lib: str, name: str, dev, n: int) -> list:
+    out = (ctypes.c_int * n)()
+    with torch.cuda.device(dev):
+        _build.check(_fn(lib, name)(ctypes.cast(out, ctypes.c_void_p)), name, lib)
+    return list(out)
+
+
+_INFO_KEYS = ("registers", "local_bytes", "shared_bytes", "threads_per_block", "blocks_per_sm", "sms")
+
+
 def step_run_info(dev) -> dict:
     """K1's compiled resources on ``dev``: registers and local (spill and
     stack) bytes per thread, static shared bytes and threads per block,
     blocks resident per SM, SMs."""
-    out = (ctypes.c_int * 6)()
-    with torch.cuda.device(dev):
-        _build.check(_fn("step", "mt_step_run_info")(ctypes.cast(out, ctypes.c_void_p)), "step run info", "step")
-    keys = ("registers", "local_bytes", "shared_bytes", "threads_per_block", "blocks_per_sm", "sms")
-    return dict(zip(keys, list(out)))
+    return dict(zip(_INFO_KEYS, _kernel_info("step", "mt_step_run_info", dev, 6)))
 
 
-def launch_unsat(pool, st: StateBatch, ctl=None, out=None) -> torch.Tensor:
-    """K3 on a CUDA batch; returns bool[L] (``out`` if given)."""
-    dev = st.pc.device
-    L = st.pc.shape[0]
-    if out is None:
-        out = torch.zeros(L, dtype=torch.bool, device=dev)
-    _checked(out, "out", torch.bool, dev)
-    pl = planes(st, 1, st.visited.shape[1])
-    ps = pool_struct(pool)
-    if ps.V > 256:
-        raise _build.KernelError("unsat_mask kernel takes at most 256 pool variables")
-    rc = _fn("inloop", "mt_unsat_mask")(ctypes.byref(pl), ctypes.byref(ps), _vp(out), _vp(ctl),
-                                         NFIELDS, _build.stream(dev))
-    _build.check(rc, "unsat_mask", "inloop")
-    return out
+def unsat_info(dev) -> dict:
+    """K3's compiled resources: registers and local bytes per thread,
+    static shared bytes and threads per block."""
+    return dict(zip(_INFO_KEYS, _kernel_info("inloop", "mt_unsat_mask_info", dev, 4)))
+
+
+def epilogue_info(dev) -> dict:
+    """K4's compiled resources, as ``step_run_info``."""
+    return dict(zip(_INFO_KEYS, _kernel_info("megakernel", "mt_round_epilogue_info", dev, 6)))
+
+
+def _same(built, given) -> bool:
+    return all(a is b for a, b in zip(built, given))
+
+
+class UnsatArgs:
+    """The arguments of a K3 launch, checked and built once: the fused
+    loops screen the same batch into the same mask every round, with a
+    pool fixed for the super-round."""
+
+    def __init__(self, pool, st: StateBatch, ctl=None, out=None):
+        dev = st.pc.device
+        L = st.pc.shape[0]
+        if out is None:
+            out = torch.zeros(L, dtype=torch.bool, device=dev)
+        _checked(out, "out", torch.bool, dev)
+        if out.shape != (L,):
+            raise _build.KernelError(f"the unsat mask must be bool[{L}]")
+        if ctl is not None:
+            _checked(ctl, "ctl", torch.int32, dev)
+        self.pl = planes(st, 1, st.visited.shape[1])
+        self.ps = pool_struct(pool)
+        if self.ps.V > 256:
+            raise _build.KernelError("unsat_mask kernel takes at most 256 pool variables")
+        self.out = out
+        self.keep = (pool, st, ctl)  # the tensors behind the pointers
+        self.argv = (ctypes.byref(self.pl), ctypes.byref(self.ps), _vp(out), _vp(ctl), NFIELDS, _build.stream(dev))
+
+    def check(self, pool, st, ctl, out) -> None:
+        """Raise unless the launch's own arguments are those these were
+        built for (``out`` None: any)."""
+        if not _same(self.keep, (pool, st, ctl)) or (out is not None and out is not self.out):
+            raise _build.KernelError("unsat_mask: the prebuilt arguments are for other tensors")
+
+
+def launch_unsat(pool, st: StateBatch, ctl=None, out=None, args: UnsatArgs = None) -> torch.Tensor:
+    """K3 on a CUDA batch; returns bool[L] (``out`` if given). ``args``,
+    built once by a loop, stands for ``pool``, ``st``, ``ctl`` and ``out``."""
+    a = args if args is not None else UnsatArgs(pool, st, ctl, out)
+    if args is not None:
+        a.check(pool, st, ctl, out)
+    _build.check(_fn("inloop", "mt_unsat_mask")(*a.argv), "unsat_mask", "inloop")
+    return a.out
+
+
+class EpilogueArgs:
+    """The arguments of a K4 launch, checked and built once: the fused
+    loops run the epilogue every round on the same batch, scratch batch,
+    mask, accumulators and control word, updated in place. ``flags`` and
+    ``gate`` are given per launch (the fused mesh loop runs two kinds)."""
+
+    def __init__(self, cb, st, unsat, acc, pv, ctl, max_rounds, scratch, n_shards=1):
+        dev = st.pc.device
+        L = st.pc.shape[0]
+        sc = Scratch.get(dev, L)
+        n_codes, CL = cb.code.shape
+        self.pl = planes(st, n_codes, CL)
+        self.ps = planes(scratch, n_codes, CL)
+        _checked(unsat, "unsat", torch.bool, dev)
+        _checked(acc, "acc", torch.int32, dev)
+        _checked(pv, "pruned_visited", torch.bool, dev)
+        _checked(ctl, "ctl", torch.int32, dev)
+        _checked(cb.prune_revert, "prune_revert", torch.bool, dev)
+        if pv.shape != (n_codes, CL) or ctl.numel() != 4 or acc.numel() != 4 or unsat.shape != (L,):
+            raise _build.KernelError("bad pruned_visited / ctl / acc / unsat shape")
+        if n_shards < 1 or L % n_shards:
+            raise _build.KernelError(f"{L} lanes do not split into {n_shards} shards")
+        self.argv = (
+            ctypes.byref(self.pl), ctypes.byref(self.ps), _vp(cb.prune_revert), _vp(unsat), _vp(acc),
+            _vp(sc.order), _vp(sc.dying), _vp(sc.eflags), _vp(pv), _vp(ctl), int(max_rounds), int(n_shards))
+        self.keep = (cb, st, unsat, acc, pv, ctl, scratch)  # the tensors behind the pointers
+        self.sc = sc
+        self.shape = (int(max_rounds), int(n_shards))
+        self.stream = _build.stream(dev)
+        self.dev = dev
+
+    def check(self, cb, st, unsat, acc, pv, ctl, max_rounds, scratch, n_shards) -> None:
+        """Raise unless the launch's own arguments are those these were
+        built for."""
+        if not _same(self.keep, (cb, st, unsat, acc, pv, ctl, scratch)) or \
+                self.shape != (int(max_rounds), int(n_shards)):
+            raise _build.KernelError("round_epilogue: the prebuilt arguments are for other tensors or shards")
 
 
 def launch_epilogue(cb, st, unsat, acc, pv, ctl, max_rounds, scratch, n_shards=1, flags=EPI_COMMIT,
-                    gate=None) -> None:
-    """K4 on a CUDA batch: prune/kill/fold/compact in place, the
-    compaction stable inside each of ``n_shards`` lane blocks. ``flags``
-    (EPI_COMMIT, EPI_COMPACT_ONLY) and ``gate`` (an int32 word; the
-    launch does nothing while it is 0) serve the fused mesh loop."""
-    dev = st.pc.device
-    L = st.pc.shape[0]
-    sc = Scratch.get(dev, L)
-    n_codes, CL = cb.code.shape
-    pl = planes(st, n_codes, CL)
-    ps = planes(scratch, n_codes, CL)
-    _checked(unsat, "unsat", torch.bool, dev)
-    _checked(acc, "acc", torch.int32, dev)
-    _checked(pv, "pruned_visited", torch.bool, dev)
-    _checked(ctl, "ctl", torch.int32, dev)
-    if pv.shape != (n_codes, CL) or ctl.numel() != 4 or acc.numel() != 4:
-        raise _build.KernelError("bad pruned_visited / ctl / acc shape")
-    if n_shards < 1 or L % n_shards:
-        raise _build.KernelError(f"{L} lanes do not split into {n_shards} shards")
+                    gate=None, args: EpilogueArgs = None) -> None:
+    """K4 on a CUDA batch, one cooperative launch: prune/kill/fold/compact
+    in place, the compaction stable inside each of ``n_shards`` lane
+    blocks. ``flags`` (EPI_COMMIT, EPI_COMPACT_ONLY) and ``gate`` (an
+    int32 word; the launch does nothing while it is 0 but commit) serve
+    the fused mesh loop. ``args``, built once by a loop, stands for the
+    other arguments. The grid is as many blocks as the lanes need and the
+    card holds at once."""
+    a = args if args is not None else EpilogueArgs(cb, st, unsat, acc, pv, ctl, max_rounds, scratch, n_shards)
+    if args is not None:
+        a.check(cb, st, unsat, acc, pv, ctl, max_rounds, scratch, n_shards)
     if gate is not None:
-        _checked(gate, "gate", torch.int32, dev)
-    rc = _fn("megakernel", "mt_round_epilogue")(
-        ctypes.byref(pl), ctypes.byref(ps), _vp(cb.prune_revert), _vp(unsat), _vp(acc),
-        _vp(sc.order), _vp(sc.dying), _vp(pv), _vp(ctl), int(max_rounds), int(n_shards), int(flags),
-        _vp(gate), NFIELDS, _build.stream(dev))
+        _checked(gate, "gate", torch.int32, a.dev)
+    rc = _fn("megakernel", "mt_round_epilogue")(*a.argv, int(flags), _vp(gate), NFIELDS, a.stream)
     _build.check(rc, "round_epilogue", "megakernel")
 
 

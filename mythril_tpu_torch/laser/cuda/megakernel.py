@@ -21,15 +21,21 @@ reads it first and returns at once when the loop has ended, which is the
 reference's ``while_loop`` condition evaluated between rounds. The only
 host read is the caller's fetch of ``info``.
 
-K4 (``csrc/megakernel.cu``) is two launches: ``epi_plan`` (one block,
-L <= 1024) computes the prune/kill masks, folds the accumulators, ranks
-survivors and writes the permutation and the next control word; then
-``epi_gather`` (one block per destination lane) moves every plane's row
-from its source lane into a scratch batch, zeroing the dying lanes'
-counters and OR-ing their visited rows into ``pruned_visited``; the
-scratch batch becomes the state with ``copy_`` on the same stream (a
-device-to-device copy, no sync). Bound on the H100: bytes — the
-compaction reads and writes every plane of the batch once.
+K4 (``csrc/megakernel.cu``) is one cooperative launch. Each thread
+plans at most a few lanes (the prune/kill masks and the u32 counter
+folds, summed by warp shuffles and one atomic per block); after a grid
+barrier every block scans all the lanes' flags in shared memory (K1's
+scan) for the stable order, stages the next control word (block 0),
+and moves only the rows whose place changes into a scratch batch,
+several warps a row, while OR-ing the dying lanes' visited rows into
+``pruned_visited``; after a second barrier the moved rows come back
+and every dying lane's counters and visited row are zeroed where it now
+lies, moved or not; block 0 commits the control word last. The launch
+arguments of K3 and K4 (``kernels.UnsatArgs``, ``EpilogueArgs``) are
+built once per super-round: the loop updates the batch, the scratch
+batch, the mask, the accumulators and the control word in place. Bound
+on the H100: bytes — the per-lane flag planes, 2 x the rows that move
+and 2 x code_len per dying lane.
 
 ``run_fused_mesh`` is the same super-round over a mesh of n lane shards
 (the reference's ``_mesh_kernel`` under ``shard_map``, B12): K1 places
@@ -154,6 +160,8 @@ def run_fused(
     scratch = StateBatch(*(torch.empty_like(x) for x in s))
     unsat = torch.zeros(L, dtype=torch.bool, device=dev)
     args = kernels.StepArgs(cb, s)
+    k3 = kernels.UnsatArgs(pool, s, ctl, unsat) if with_solve else None
+    k4 = kernels.EpilogueArgs(cb, s, unsat, acc, pv, ctl, int(max_rounds), scratch)
     hist = torch.zeros(256 if with_stats else 1, dtype=torch.int32, device=dev)
     if with_stats:
         snap = engine.snapshot(s)
@@ -169,8 +177,8 @@ def run_fused(
         else:  # the round's steps in one K1 launch
             engine.step_n(cb, env, s, steps_per_round, device=dev, ctl=ctl, inplace=True, args=args)
         if with_solve:
-            inloop_solve.unsat_mask(pool, s, device=dev, ctl=ctl, out=unsat)
-        round_epilogue(cb, s, unsat, acc, pv, ctl, max_rounds, scratch)
+            inloop_solve.unsat_mask(pool, s, device=dev, ctl=ctl, out=unsat, args=k3)
+        round_epilogue(cb, s, unsat, acc, pv, ctl, max_rounds, scratch, args=k4)
     return FusedOut(s, _info(ctl[0], acc, s), pv, hist)
 
 
@@ -199,17 +207,19 @@ def run_fused_plain(cb, st, max_rounds, steps_per_round, with_solve, pool, with_
     return FusedOut(s, _info(torch.tensor(r, device=dev), acc, s), pv, hist)
 
 
-def round_epilogue(cb, s, unsat, acc, pv, ctl, max_rounds, scratch, n_shards=1, flags=None, gate=None):
+def round_epilogue(cb, s, unsat, acc, pv, ctl, max_rounds, scratch, n_shards=1, flags=None, gate=None, args=None):
     """K4 on the card: prune/kill/fold/compact ``s`` in place, advance
     ``ctl``. ``unsat`` must be all False when the screen is off. The
     fused mesh loop passes ``n_shards``, defers the commit of ``ctl``
-    (``flags``) and runs a bare compaction gated on its steal word."""
+    (``flags``) and runs a bare compaction gated on its steal word.
+    ``args`` is a ``kernels.EpilogueArgs`` a loop built once for these
+    arguments."""
     from mythril_tpu_torch.laser.cuda import kernels
 
     global launches
     launches += 1
     flags = kernels.EPI_COMMIT if flags is None else flags
-    kernels.launch_epilogue(cb, s, unsat, acc, pv, ctl, int(max_rounds), scratch, n_shards, flags, gate)
+    kernels.launch_epilogue(cb, s, unsat, acc, pv, ctl, int(max_rounds), scratch, n_shards, flags, gate, args)
 
 
 def decode_info(info) -> FusedStats:
@@ -302,6 +312,8 @@ def run_fused_mesh(
     unsat = torch.zeros(L, dtype=torch.bool, device=dev)
     args = kernels.StepArgs(cb, s, n)
     margs = kernels.MeshArgs(s, n, ctl)
+    k3 = kernels.UnsatArgs(pool, s, ctl, unsat) if with_solve else None
+    k4 = kernels.EpilogueArgs(cb, s, unsat, acc, pv, ctl, int(max_rounds), scratch, n)
     hist = torch.zeros(256 if with_stats else 1, dtype=torch.int32, device=dev)
     if with_stats:
         snap = engine.snapshot(s)
@@ -317,11 +329,11 @@ def run_fused_mesh(
         else:
             engine.step_n(cb, env, s, steps_per_round, device=dev, ctl=ctl, inplace=True, args=args, n_shards=n)
         if with_solve:
-            inloop_solve.unsat_mask(pool, s, device=dev, ctl=ctl, out=unsat)
-        round_epilogue(cb, s, unsat, acc, pv, ctl, max_rounds, scratch, n, flags=0)
+            inloop_solve.unsat_mask(pool, s, device=dev, ctl=ctl, out=unsat, args=k3)
+        round_epilogue(cb, s, unsat, acc, pv, ctl, max_rounds, scratch, n, flags=0, args=k4)
         mesh_lib.steal_round(margs)
         round_epilogue(cb, s, unsat, acc, pv, ctl, max_rounds, scratch, n,
-                       flags=kernels.EPI_COMMIT | kernels.EPI_COMPACT_ONLY, gate=margs.mctl)
+                       flags=kernels.EPI_COMMIT | kernels.EPI_COMPACT_ONLY, gate=margs.mctl, args=k4)
     info = _mesh_info(ctl[0], acc, margs.mctl[2], margs.mctl[3], s, n)
     return FusedOut(s, info, pv, hist)
 

@@ -61,6 +61,28 @@ def _emu_step(lib, cb, st):
     return _emu_k1(lib, cb, st, 1)
 
 
+def _emu_unsat(lib, st, pool, reverse=0):
+    """One emulated K3 launch (one warp a lane, its threads in ascending
+    or descending order between the warp's barriers)."""
+    out = torch.zeros(st.pc.shape[0], dtype=torch.bool)
+    pl = kernels.planes(st, 1, st.visited.shape[1])
+    assert lib.emu_unsat(ctypes.byref(pl), ctypes.byref(kernels.pool_struct(pool)), _vp(out), reverse) == 0
+    return out
+
+
+def _emu_epilogue(lib, cb, s, scratch, unsat, acc, pv, ctl, max_rounds, n=1, flags=kernels.EPI_COMMIT,
+                  gate=None, nblocks=2, nthreads=64, reverse=0):
+    """One emulated K4 launch on ``s`` in place, ``nblocks`` blocks of
+    ``nthreads`` threads, each part's threads in either order."""
+    sc = kernels.Scratch.get(torch.device("cpu"), s.pc.shape[0])
+    pl = kernels.planes(s, cb.code.shape[0], cb.code.shape[1])
+    psc = kernels.planes(scratch, cb.code.shape[0], cb.code.shape[1])
+    assert lib.emu_epilogue(ctypes.byref(pl), ctypes.byref(psc), _vp(cb.prune_revert), _vp(unsat), _vp(acc),
+                            _vp(sc.order), _vp(sc.dying), _vp(sc.eflags), _vp(pv), _vp(ctl), max_rounds, n, flags,
+                            _vp(gate) if gate is not None else None, nblocks, nthreads, reverse) == 0
+    return sc
+
+
 def _assert_same(a, b, where):
     for name, x, y in zip(batch.StateBatch._fields, a, b):
         if not torch.equal(x, y):
@@ -204,12 +226,9 @@ def test_unsat_logic_matches_twin(emu, seed):
     pool = convert.pool_to_torch(dict(
         var_h1=hs[vsel, 0], var_h2=hs[vsel, 1], lit_var=r.integers(-2, V + 2, (C, W)).astype(np.int32),
         lit_neg=r.random((C, W)) < 0.5, lit_used=r.random((C, W)) < 0.2 + 0.05 * seed), "cpu")
-    out = torch.zeros(L, dtype=torch.bool)
-    pl = kernels.planes(st, 1, 64)
-    ps = kernels.pool_struct(pool)
-    assert emu.emu_unsat(ctypes.byref(pl), ctypes.byref(ps), _vp(out)) == 0
     want = inloop_solve.unsat_mask_plain(pool, st)
-    assert torch.equal(out, want)
+    for reverse in (0, 1):
+        assert torch.equal(_emu_unsat(emu, st, pool, reverse), want)
     assert want.any() and not want.all()
 
 
@@ -230,7 +249,6 @@ def _emu_fused(lib, cb, st, max_rounds, steps_per_round, with_solve, pool, with_
     ctl[1] = int(bool((s.alive & (s.status == 0)).any()) and max_rounds > 0)
     acc = torch.zeros(4, dtype=torch.int32)
     pv = torch.zeros(cb.code.shape, dtype=torch.bool)
-    sc = kernels.Scratch.get(torch.device("cpu"), L)
     for _ in range(max_rounds):
         snap = engine.snapshot(s)
         if with_stats:  # one K1 launch and one K8 launch per step
@@ -243,12 +261,8 @@ def _emu_fused(lib, cb, st, max_rounds, steps_per_round, with_solve, pool, with_
                 x.copy_(y)
         unsat = torch.zeros(L, dtype=torch.bool)
         if with_solve and ctl[1]:
-            pl = kernels.planes(s, 1, cb.code.shape[1])
-            assert lib.emu_unsat(ctypes.byref(pl), ctypes.byref(kernels.pool_struct(pool)), _vp(unsat)) == 0
-        pl = kernels.planes(s, cb.code.shape[0], cb.code.shape[1])
-        psc = kernels.planes(scratch, cb.code.shape[0], cb.code.shape[1])
-        assert lib.emu_epilogue(ctypes.byref(pl), ctypes.byref(psc), _vp(cb.prune_revert), _vp(unsat), _vp(acc),
-                                _vp(sc.order), _vp(sc.dying), _vp(pv), _vp(ctl), max_rounds) == 0
+            unsat = _emu_unsat(lib, s, pool)
+        _emu_epilogue(lib, cb, s, scratch, unsat, acc, pv, ctl, max_rounds)
     return s, megakernel._info(ctl[0], acc, s), pv, hist
 
 
@@ -332,7 +346,8 @@ def test_slice_loop_logic_matches_twin(emu, name):
 
 
 def test_epilogue_logic_on_mixed_lanes(emu):
-    """Alive, REVERT-pruned and in-loop-killed lanes in one round."""
+    """Alive, REVERT-pruned and in-loop-killed lanes in one round, with
+    the launch's parts run in either thread order."""
     cb, st = _inputs("stress", 2)
     for _ in range(30):
         st = engine.step_plain(cb, st)
@@ -347,17 +362,220 @@ def test_epilogue_logic_on_mixed_lanes(emu):
     acc_t = torch.zeros(4, dtype=torch.int32)
     pv_t = torch.zeros(cb.code.shape, dtype=torch.bool)
     want = megakernel.round_epilogue_plain(cb, st, unsat, acc_t, pv_t)
-    s = batch.StateBatch(*(x.clone() for x in st))
-    scratch = batch.StateBatch(*(torch.empty_like(x) for x in s))
-    acc = torch.zeros(4, dtype=torch.int32)
-    pv = torch.zeros_like(pv_t)
-    ctl = torch.tensor([0, 1, 0, 0], dtype=torch.int32)
-    sc = kernels.Scratch.get(torch.device("cpu"), L)
-    pl = kernels.planes(s, 1, CFG.code_len)
-    psc = kernels.planes(scratch, 1, CFG.code_len)
-    assert emu.emu_epilogue(ctypes.byref(pl), ctypes.byref(psc), _vp(cb.prune_revert), _vp(unsat), _vp(acc),
-                            _vp(sc.order), _vp(sc.dying), _vp(pv), _vp(ctl), 16) == 0
-    _assert_same(s, want, "epilogue")
-    assert torch.equal(acc, acc_t) and torch.equal(pv, pv_t)
-    assert int(acc[0]) > 0 and int(acc[3]) > 0  # both prune and kill happened
-    assert ctl[:2].tolist() == [1, int((want.alive & (want.status == 0)).any())]
+    assert int(acc_t[0]) > 0 and int(acc_t[3]) > 0  # both prune and kill happened
+    for reverse in (0, 1):
+        s = batch.StateBatch(*(x.clone() for x in st))
+        scratch = batch.StateBatch(*(torch.empty_like(x) for x in s))
+        acc = torch.zeros(4, dtype=torch.int32)
+        pv = torch.zeros_like(pv_t)
+        ctl = torch.tensor([0, 1, 0, 0], dtype=torch.int32)
+        _emu_epilogue(emu, cb, s, scratch, unsat, acc, pv, ctl, 16, reverse=reverse)
+        _assert_same(s, want, f"epilogue reverse={reverse}")
+        assert torch.equal(acc, acc_t) and torch.equal(pv, pv_t)
+        assert ctl[:2].tolist() == [1, int((want.alive & (want.status == 0)).any())]
+
+
+def _pool_state(seed, L=48, P=12, T=24, V=64, C=64, W=8, case=""):
+    """A random K3 input at (L, P, T) with a (V, C, W) pool: lanes with
+    random alive/status flags, path entries naming random tape nodes whose
+    hashes come from a small set, so that the pool's vars match some.
+    Every clause has at least two literals, so that what a lane's path
+    seeds decides whether propagation conflicts."""
+    r = np.random.default_rng(seed)
+    cfg = batch.BatchConfig(lanes=L, stack_slots=4, memory_bytes=32, calldata_bytes=32, storage_slots=2,
+                            code_len=64, tape_slots=T, path_slots=P, mem_sym_slots=2, ss_ring=4)
+    hs = r.integers(0, 2**32, (10, 2), dtype=np.uint64).astype(np.uint32)
+    pick = r.integers(0, 10, (L, T))
+    status = r.choice([0, 0, 5], L) if case == "not_running" else np.zeros(L, np.int64)
+    plen_hi = P + 6 if case == "path_len_above" else P + 1
+    id_lo = -3 if case == "ids_nonpositive" else 0
+    st = batch.empty_batch(cfg, device="cpu")._replace(
+        alive=torch.as_tensor(r.random(L) < (0.6 if case == "not_running" else 0.95)),
+        status=torch.as_tensor(status.astype(np.int32)),
+        path_len=torch.as_tensor(r.integers(0, plen_hi, L).astype(np.int32)),
+        path_id=torch.as_tensor(r.integers(id_lo, 4 * T, (L, P)).astype(np.int32)),
+        path_sign=torch.as_tensor(r.random((L, P)) < 0.5),
+        tape_op=torch.as_tensor(np.where(r.random((L, T)) < 0.05, 32, 10).astype(np.int32)),
+        tape_a=torch.as_tensor(r.integers(-1, T + 1, (L, T)).astype(np.int32)),
+        tape_h1=torch.as_tensor(hs[pick, 0].view(np.int32)), tape_h2=torch.as_tensor(hs[pick, 1].view(np.int32)),
+    )
+    if case == "empty_pool":
+        return st, inloop_solve.empty_pool("cpu")
+    vsel = r.integers(0, 10, V)
+    lo, hi = (-V - 3, V + 3) if case == "lit_var_range" else (0, V)
+    pool = dict(var_h1=hs[vsel, 0], var_h2=hs[vsel, 1], lit_var=r.integers(lo, hi, (C, W)).astype(np.int32),
+                lit_neg=r.random((C, W)) < 0.5, lit_used=(r.random((C, W)) < 0.2) | (np.arange(W) < 2))
+    if case == "chain":
+        # x0 -> x1 -> ... -> x5 and (not x5), one clause each, in thread
+        # order: two sweeps from a path that asserts x0 reach x2 and x4 and
+        # no conflict; a sweep that read its own forced values would
+        # (ascending threads) reach x5 and conflict
+        pool["var_h1"][1:6] = pool["var_h2"][1:6] = 0xDEAD0000 + np.arange(1, 6, dtype=np.uint32)
+        pool["lit_used"][:] = False
+        for c in range(5):
+            pool["lit_var"][c, :2] = (c, c + 1)
+            pool["lit_neg"][c, :2] = (True, False)
+            pool["lit_used"][c, :2] = True
+        pool["lit_var"][5, 0], pool["lit_neg"][5, 0], pool["lit_used"][5, 0] = 5, True, True
+    return st, convert.pool_to_torch(pool, "cpu")
+
+
+K3_CASES = {
+    "v64": dict(V=64),
+    "v256": dict(V=256, C=64),
+    "empty_pool": dict(case="empty_pool"),
+    "lit_var_range": dict(case="lit_var_range"),
+    "path_len_above": dict(case="path_len_above"),
+    "ids_nonpositive": dict(case="ids_nonpositive"),
+    "not_running": dict(case="not_running"),
+    "pn_above_warp": dict(P=40, T=48),
+    "chain": dict(case="chain"),
+}
+
+
+@pytest.mark.parametrize("case", sorted(K3_CASES))
+def test_unsat_warp_logic_cases(emu, case):
+    """K3 as one warp a lane, against the twin, with the warp's threads in
+    ascending and descending order: pools at V = 64 and 256 and the empty
+    pool, literals naming vars out of range either way, path lengths above
+    Pn, ids <= 0, lanes not alive or not RUNNING, and more entries than a
+    warp has threads."""
+    st, pool = _pool_state(11, **K3_CASES[case])
+    want = inloop_solve.unsat_mask_plain(pool, st)
+    for reverse in (0, 1):
+        got = _emu_unsat(emu, st, pool, reverse)
+        assert torch.equal(got, want), (case, reverse, (got != want).nonzero().flatten().tolist())
+    assert want.any() and not want.all()
+    eligible = st.alive & (st.status == 0)
+    assert not (want & ~eligible).any()
+
+
+def _tagged_batch(seed, L=64):
+    """Lanes with tagged rows (pc, steps, a stack word, visited bits) and
+    random flags, for the epilogue cases."""
+    r = np.random.default_rng(seed)
+    cfg = batch.BatchConfig(lanes=L, stack_slots=4, memory_bytes=32, calldata_bytes=32, storage_slots=2,
+                            code_len=64, tape_slots=8, path_slots=4, mem_sym_slots=2, ss_ring=4)
+    st = batch.empty_batch(cfg, device="cpu")
+    cb = batch.make_code_bank([assemble("STOP")], cfg.code_len, prune_revert=True, device="cpu")
+    return r, cb, st._replace(
+        pc=torch.arange(L, dtype=torch.int32) + 100,
+        steps=torch.as_tensor(r.integers(0, 1000, L).astype(np.int32)),
+        static_pruned=torch.as_tensor(r.integers(0, 9, L).astype(np.int32)),
+        stack=torch.as_tensor(r.integers(-(1 << 31), 1 << 31, tuple(st.stack.shape), dtype=np.int64).astype(np.int32)),
+        visited=torch.as_tensor(r.random(tuple(st.visited.shape)) < 0.2),
+        outermost=torch.ones(L, dtype=torch.bool),
+    )
+
+
+def _epilogue_case(case, seed=3):
+    """(cb, batch, unsat, n_shards) for one K4 case."""
+    r, cb, st = _tagged_batch(seed)
+    L = st.pc.shape[0]
+    n = {"n2": 2, "n8": 8}.get(case, 1)
+    alive = torch.as_tensor(r.random(L) < 0.6)
+    status = torch.as_tensor(r.choice([0, 0, 1, 3, 5], L).astype(np.int32))
+    trap_op = torch.as_tensor(r.choice([0xFD, 0x57], L).astype(np.int32))
+    unsat = torch.as_tensor(r.random(L) < 0.2)
+    if case == "identity":  # every shard's survivors are its prefix, nothing dies
+        alive = torch.arange(L) < 40
+        status = torch.zeros(L, dtype=torch.int32)
+        unsat = torch.zeros(L, dtype=torch.bool)
+    elif case == "all_move":  # lane 0 free, the rest survive: every lane moves
+        alive = torch.arange(L) > 0
+        status = torch.zeros(L, dtype=torch.int32)
+        unsat = torch.zeros(L, dtype=torch.bool)
+    elif case == "dying_in_place":  # lanes 0-29 survive, 30 reverts, 31 is killed, the rest are free
+        alive = torch.arange(L) < 32
+        status = torch.zeros(L, dtype=torch.int32)
+        status[30] = batch.REVERTED
+        unsat = torch.zeros(L, dtype=torch.bool)
+        unsat[31] = True
+    elif case == "steps_wrap":  # the dying lanes' steps sum past 2^31
+        steps = torch.as_tensor(r.integers((1 << 31) - 5000, (1 << 31) - 1, L).astype(np.int32))
+        st = st._replace(steps=steps, static_pruned=steps.flip(0))
+    st = st._replace(alive=alive, status=status, trap_op=trap_op)
+    return cb, st, unsat & alive, n
+
+
+K4_CASES = ["n1", "n2", "n8", "identity", "all_move", "dying_in_place", "steps_wrap"]
+
+
+@pytest.mark.parametrize("launch", [(1, 32), (4, 64), (25, 256)], ids=["1x32", "4x64", "25x256"])
+@pytest.mark.parametrize("case", K4_CASES)
+def test_epilogue_launch_logic_cases(emu, case, launch):
+    """K4 as one cooperative launch, against the twin in both thread
+    orders, with one warp for all rows, one for several and three warps a
+    row: 1, 2 and 8 shards; an order where nothing moves; one where every
+    lane moves; dying lanes that keep their place (they must be zeroed
+    there); u32 folds that wrap past 2^31."""
+    cb, st, unsat, n = _epilogue_case(case)
+    L = st.pc.shape[0]
+    acc0 = torch.tensor([5, (1 << 31) - 7, -3, 1], dtype=torch.int32)
+    acc_t = acc0.clone()
+    pv_t = torch.zeros(cb.code.shape, dtype=torch.bool)
+    want = megakernel.round_epilogue_plain(cb, st, unsat, acc_t, pv_t, n)
+    dying_t = (megakernel.prune_mask(cb, st) | unsat)
+    survives = (st.alive & ~dying_t).to(torch.int32).view(n, -1)
+    order_t = (torch.argsort(survives, dim=1, descending=True, stable=True)
+               + torch.arange(0, L, L // n)[:, None]).reshape(L).to(torch.int32)
+    moved = int((order_t != torch.arange(L)).sum())
+    assert moved == {"identity": 0, "all_move": L}.get(case, moved)
+    if case == "dying_in_place":
+        assert order_t[30] == 30 and order_t[31] == 31 and bool(dying_t[30]) and bool(dying_t[31])
+    if case == "steps_wrap":
+        assert int(acc_t[1]) < int(acc0[1])  # wrapped
+    for reverse in (0, 1):
+        s = batch.StateBatch(*(x.clone() for x in st))
+        scratch = batch.StateBatch(*(torch.empty_like(x) for x in s))
+        acc, pv = acc0.clone(), torch.zeros_like(pv_t)
+        ctl = torch.tensor([2, 1, 0, 0], dtype=torch.int32)
+        sc = _emu_epilogue(emu, cb, s, scratch, unsat, acc, pv, ctl, 16, n, nblocks=launch[0],
+                           nthreads=launch[1], reverse=reverse)
+        _assert_same(s, want, f"{case} reverse={reverse}")
+        assert torch.equal(acc, acc_t) and torch.equal(pv, pv_t)
+        assert torch.equal(sc.order, order_t) and torch.equal(sc.dying.bool(), dying_t)
+        assert ctl.tolist() == [3, int((want.alive & (want.status == 0)).any())] * 2
+
+
+@pytest.mark.parametrize("gate", [0, 1])
+def test_epilogue_compact_only_logic(emu, gate):
+    """K4's bare compaction after a steal: with the gate open a stable
+    per-shard compaction and nothing else (no prune of REVERTED lanes, no
+    folds, no staging); with it shut nothing moves. The staged control
+    word is committed either way."""
+    cb, st, unsat, _n = _epilogue_case("n8")
+    st = st._replace(status=torch.full_like(st.status, batch.REVERTED))
+    for reverse in (0, 1):
+        s = batch.StateBatch(*(x.clone() for x in st))
+        scratch = batch.StateBatch(*(torch.empty_like(x) for x in s))
+        acc, pv = torch.zeros(4, dtype=torch.int32), torch.zeros(cb.code.shape, dtype=torch.bool)
+        ctl = torch.tensor([4, 1, 5, 0], dtype=torch.int32)
+        _emu_epilogue(emu, cb, s, scratch, unsat, acc, pv, ctl, 16, 8,
+                      kernels.EPI_COMMIT | kernels.EPI_COMPACT_ONLY, torch.tensor([gate], dtype=torch.int32),
+                      reverse=reverse)
+        _assert_same(s, megakernel.compact_plain(st, 8) if gate else st, f"gate={gate} reverse={reverse}")
+        assert not acc.any() and not pv.any()
+        assert ctl.tolist() == [5, 0, 5, 0]
+
+
+@pytest.mark.parametrize("which", ["unsat", "epilogue"])
+def test_prebuilt_args_refuse_other_tensors(which):
+    """A loop's prebuilt launch arguments stand for the tensors they were
+    built from: a launch that names others raises before any kernel runs.
+    The structs need a card; the check itself does not."""
+    t = [torch.zeros(4, dtype=torch.int32) for _ in range(8)]
+    if which == "unsat":
+        a = object.__new__(kernels.UnsatArgs)
+        a.keep, a.out = (t[0], t[1], t[2]), t[3]
+        a.check(t[0], t[1], t[2], None)
+        a.check(t[0], t[1], t[2], t[3])
+        bad = [(t[0], t[4], t[2], None), (t[0], t[1], None, None), (t[0], t[1], t[2], t[4])]
+    else:
+        a = object.__new__(kernels.EpilogueArgs)
+        a.keep, a.shape = tuple(t[:7]), (16, 2)
+        a.check(*t[:6], 16, t[6], 2)
+        bad = [(*t[:6], 16, t[6], 1), (*t[:6], 8, t[6], 2), (t[0], t[7], *t[2:6], 16, t[6], 2)]
+    for args in bad:
+        with pytest.raises(_build.KernelError):
+            a.check(*args)

@@ -80,13 +80,15 @@ def _emu_step(lib, cb, st, n):
     return _emu_k1(lib, cb, st, n, 1)
 
 
-def _emu_epilogue(lib, cb, s, scratch, unsat, acc, pv, ctl, max_rounds, n, flags, gate=None):
+def _emu_epilogue(lib, cb, s, scratch, unsat, acc, pv, ctl, max_rounds, n, flags, gate=None, reverse=0):
+    """One emulated K4 launch (2 blocks of 64 threads, each part's
+    threads in ascending or descending order) on ``s`` in place."""
     sc = kernels.Scratch.get(torch.device("cpu"), s.pc.shape[0])
     pl = kernels.planes(s, cb.code.shape[0], cb.code.shape[1])
     psc = kernels.planes(scratch, cb.code.shape[0], cb.code.shape[1])
-    assert lib.emu_epilogue_sharded(ctypes.byref(pl), ctypes.byref(psc), _vp(cb.prune_revert), _vp(unsat),
-                                    _vp(acc), _vp(sc.order), _vp(sc.dying), _vp(pv), _vp(ctl), max_rounds, n,
-                                    flags, _vp(gate)) == 0
+    assert lib.emu_epilogue(ctypes.byref(pl), ctypes.byref(psc), _vp(cb.prune_revert), _vp(unsat), _vp(acc),
+                            _vp(sc.order), _vp(sc.dying), _vp(sc.eflags), _vp(pv), _vp(ctl), max_rounds, n, flags,
+                            _vp(gate), 2, 64, reverse) == 0
 
 
 def _emu_plan(lib, st, n, flags, ctl=None, mctl=None):
@@ -225,24 +227,47 @@ def test_sharded_epilogue_logic_matches_twin(emu, n):
     acc_t = torch.zeros(4, dtype=torch.int32)
     pv_t = torch.zeros(cb.code.shape, dtype=torch.bool)
     want = megakernel.round_epilogue_plain(cb, st, unsat, acc_t, pv_t, n)
-    s = _clone(st)
-    scratch = batch.StateBatch(*(torch.empty_like(x) for x in s))
-    acc = torch.zeros(4, dtype=torch.int32)
-    pv = torch.zeros_like(pv_t)
-    ctl = torch.tensor([0, 1, 0, 0], dtype=torch.int32)
-    _emu_epilogue(emu, cb, s, scratch, unsat, acc, pv, ctl, 16, n, 0)
-    _assert_same(s, want, f"epilogue n={n}")
-    assert torch.equal(acc, acc_t) and torch.equal(pv, pv_t)
-    # not committed yet: the mesh loop commits after the steal
-    assert ctl.tolist() == [0, 1, 1, int((want.alive & (want.status == 0)).any())]
-    # a bare compaction (gate open) leaves the counters alone
     shuffled = batch.StateBatch(*(x[torch.as_tensor(r.permutation(L))] for x in want))
-    s = _clone(shuffled)
-    _emu_epilogue(emu, cb, s, scratch, unsat, acc, pv, ctl, 16, n,
-                  kernels.EPI_COMMIT | kernels.EPI_COMPACT_ONLY, torch.ones(1, dtype=torch.int32))
-    _assert_same(s, megakernel.compact_plain(shuffled, n), f"compaction n={n}")
-    assert torch.equal(acc, acc_t) and torch.equal(pv, pv_t)
-    assert ctl[:2].tolist() == ctl[2:].tolist()
+    for reverse in (0, 1):
+        s = _clone(st)
+        scratch = batch.StateBatch(*(torch.empty_like(x) for x in s))
+        acc = torch.zeros(4, dtype=torch.int32)
+        pv = torch.zeros_like(pv_t)
+        ctl = torch.tensor([0, 1, 0, 0], dtype=torch.int32)
+        _emu_epilogue(emu, cb, s, scratch, unsat, acc, pv, ctl, 16, n, 0, reverse=reverse)
+        _assert_same(s, want, f"epilogue n={n} reverse={reverse}")
+        assert torch.equal(acc, acc_t) and torch.equal(pv, pv_t)
+        # not committed yet: the mesh loop commits after the steal
+        assert ctl.tolist() == [0, 1, 1, int((want.alive & (want.status == 0)).any())]
+        # a bare compaction (gate open) leaves the counters alone
+        s = _clone(shuffled)
+        _emu_epilogue(emu, cb, s, scratch, unsat, acc, pv, ctl, 16, n,
+                      kernels.EPI_COMMIT | kernels.EPI_COMPACT_ONLY, torch.ones(1, dtype=torch.int32), reverse)
+        _assert_same(s, megakernel.compact_plain(shuffled, n), f"compaction n={n} reverse={reverse}")
+        assert torch.equal(acc, acc_t) and torch.equal(pv, pv_t)
+        assert ctl[:2].tolist() == ctl[2:].tolist()
+
+
+@pytest.mark.parametrize("gate", [0, 1])
+@pytest.mark.parametrize("n", [1, 2, 8])
+def test_sharded_compaction_logic_gate(emu, n, gate):
+    """The bare compaction after a steal (EPI_COMPACT_ONLY) on tagged
+    rows with REVERTED and killed-looking lanes: with the gate open a
+    stable compaction per shard and no prune, kill, fold or staging; shut,
+    no row moves. Either way the staged control word is committed."""
+    st = _random_batch(10 + n, dense=False)
+    st = st._replace(status=torch.where(st.status == batch.STOPPED, batch.REVERTED, st.status))
+    cb = batch.make_code_bank([assemble("STOP")], st.visited.shape[1], prune_revert=True, device="cpu")
+    unsat = st.alive.clone()
+    for reverse in (0, 1):
+        s = _clone(st)
+        scratch = batch.StateBatch(*(torch.empty_like(x) for x in s))
+        acc, pv = torch.zeros(4, dtype=torch.int32), torch.zeros(cb.code.shape, dtype=torch.bool)
+        ctl = torch.tensor([6, 1, 7, 1], dtype=torch.int32)
+        _emu_epilogue(emu, cb, s, scratch, unsat, acc, pv, ctl, 16, n,
+                      kernels.EPI_COMMIT | kernels.EPI_COMPACT_ONLY, torch.tensor([gate], dtype=torch.int32), reverse)
+        _assert_same(s, megakernel.compact_plain(st, n) if gate else st, f"n={n} gate={gate} reverse={reverse}")
+        assert not acc.any() and not pv.any() and ctl.tolist() == [7, 1, 7, 1]
 
 
 def _emu_fused_mesh(lib, cb, st, n, max_rounds, steps_per_round, with_solve, pool, with_stats):
@@ -273,7 +298,7 @@ def _emu_fused_mesh(lib, cb, st, n, max_rounds, steps_per_round, with_solve, poo
                 x.copy_(y)
         if with_solve and ctl[1]:
             pl = kernels.planes(s, 1, cb.code.shape[1])
-            assert lib.emu_unsat(ctypes.byref(pl), ctypes.byref(kernels.pool_struct(pool)), _vp(unsat)) == 0
+            assert lib.emu_unsat(ctypes.byref(pl), ctypes.byref(kernels.pool_struct(pool)), _vp(unsat), 0) == 0
         _emu_epilogue(lib, cb, s, scratch, unsat, acc, pv, ctl, max_rounds, n, 0)
         flags = kernels.MESH_PLAN | kernels.MESH_GATE_SPREAD | kernels.MESH_ACCUM
         export, buf_pos, sh, _ = _emu_plan(lib, s, n, flags, ctl=ctl, mctl=mctl)
