@@ -34,8 +34,11 @@ phases that each print one JSON line:
    as the loops launch them; the main path's wall and enqueue per
    contract;
 5. K6 unpack / K7 pack against their twins at DEFAULT_BATCH_CFG (full,
-   tape-sliced, groups-absent and alive-prefix batches) and the
-   host -> card -> host round trip of every plane;
+   tape-sliced, groups-absent, alive-prefix and bool-bytes batches, the
+   last with bytes 0-255 in every bool plane) and the host -> card ->
+   host round trip of every plane; K7's shard_lanes downloads (8 lane
+   blocks of the bulky and of the small planes), and a table past
+   XFER_MAX_SEGS, which must raise KernelError;
 6. K5 solve against its twin on CNFs compiled from seeded formulas, on
    every (vars, clauses) bucket at 8 and 64 instances, flips 0/64/4096;
    every SAT row must satisfy its CNF and agree with the flips=0 phase;
@@ -48,7 +51,9 @@ phases that each print one JSON line:
    failed device solve; the first K5 batches of the runs are replayed
    through the twin;
 8. the times of K5-K7 against their twins, bounds, the host link and a
-   per-plane copy_ sequence;
+   per-plane copy_ sequence; K6 and each K7 call also queued behind a
+   spinning kernel (ms_device), K7's calls beside torch.cat of the same
+   byte views (library_ms), and K6/K7's registers and spills;
 9. K8 (the retired-opcode histogram) against its twin after each of 64
    forking steps of a full-width BECToken batch, and the sync slice loop
    (K9 + K1 + K8: engine.run_with_stats, and engine.run) against the
@@ -768,30 +773,25 @@ def run(dev, cfg, smi, k1_steps=64, rounds=16, steps_per_round=256):
 
 
 
-EXPECTED_ISSUES = {"becstress": [("101", 8)], "bectoken": [("101", 28), ("101", 104)]}
-
-
-def run_host_half(dev, cfg, smi, budgets=(("becstress", 2, 60), ("bectoken", 3, 120)),
-                  formula_widths=(8, 32, 96, 192), solve_flips=(0, 64, 4096)):
-    """Phases 5-8: K6/K7 and K5 against their twins, the whole analysis
-    (SymExecWrapper + fire_lasers) on becstress and BECToken, and the
-    times of K5-K7. Returns the kernels line's entries for K5-K7."""
-    import random
-
+def compare_transfer(dev, cfg, max_err):
+    """Phase 5: K6 unpack and K7 pack against their twins at ``cfg`` on
+    full, tape-sliced, groups-absent, alive-prefix and bool-bytes batches
+    (every bool plane holding bytes 0-255), each with the host -> card ->
+    host round trip of every plane, and ``shard_lanes`` downloads of 8
+    lane blocks (the bulky planes, and the small ones: 400 segments); a
+    table of 16 blocks of the small planes must raise KernelError (past
+    ``XFER_MAX_SEGS``). Raises on any difference; folds each compare's error into
+    ``max_err`` and returns the cases by kind (numpy planes, upload parts,
+    the card batch, t_used, l_used)."""
     import numpy as np
     import torch
 
-    from mythril_tpu_torch.disassembler.asm import assemble
-    from mythril_tpu_torch.laser.cuda import (
-        backend, batch, convert, engine, inloop_solve, keccak, megakernel, solver, solver_cache, transfer,
-    )
+    from mythril_tpu_torch.laser.cuda import _build, batch, convert, transfer
     from mythril_tpu_torch.laser.cuda.batch import StateBatch
 
     on_card = dev.type == "cuda"
-
-    def sync():
-        if on_card:
-            torch.cuda.synchronize()
+    small = tuple(f for f in StateBatch._fields if f not in transfer._SKIP_DOWN and f not in transfer._BIG_DOWN)
+    dtypes = {k: dt for k, (_s, dt) in batch.batch_shapes(cfg).items()}
 
     def diff(a, b):
         """max |a - b| over two tensors (0 when equal)."""
@@ -799,16 +799,13 @@ def run_host_half(dev, cfg, smi, budgets=(("becstress", 2, 60), ("bectoken", 3, 
             return 0
         return max(1, int((a.to(torch.int64) - b.to(torch.int64)).abs().max()))
 
-    max_err = {"K5": 0, "K6": 0, "K7": 0}
-    small = tuple(f for f in StateBatch._fields if f not in transfer._SKIP_DOWN and f not in transfer._BIG_DOWN)
-    dtypes = {k: dt for k, (_s, dt) in batch.batch_shapes(cfg).items()}
-
-    # ---- 5. K6 / K7 against their twins at cfg ---------------------------
     def random_planes(seed, kind):
         rng = np.random.default_rng(seed)
         nb = {}
         for name, (shape, dt) in batch.batch_shapes(cfg).items():
-            if dt == np.bool_:
+            if dt == np.bool_ and kind == "bool_bytes":  # bool planes holding bytes 0-255
+                nb[name] = rng.integers(0, 256, shape, dtype=np.uint8).view(np.bool_)
+            elif dt == np.bool_:
                 nb[name] = rng.random(shape) < 0.5
             else:
                 nb[name] = rng.integers(0, np.iinfo(dt).max, shape, dtype=dt)
@@ -825,15 +822,19 @@ def run_host_half(dev, cfg, smi, budgets=(("becstress", 2, 60), ("bectoken", 3, 
             nb["alive"][: cfg.lanes // 5] = True
         return nb
 
+    def raw(x):  # a plane's bytes (a bool plane's too, whatever they hold)
+        return x.contiguous().view(torch.uint8)
+
     xfer_cases = {}
-    for seed, kind in enumerate(("full", "tape_sliced", "groups_absent", "alive_prefix")):
+    for seed, kind in enumerate(("full", "tape_sliced", "groups_absent", "alive_prefix", "bool_bytes")):
         nb = random_planes(100 + seed, kind)
         parts = transfer.batch_parts(nb, cfg)
         planes_k = transfer.upload(parts, dev)
         buf, segs = convert.upload_to_torch(parts, dev)
         planes_t = transfer.unpack_plain(buf, segs)
-        err6 = max(diff(a, b) for a, b in zip(planes_k, planes_t))
+        err6 = max(diff(raw(a), raw(b)) for a, b in zip(planes_k, planes_t))
         st = StateBatch(*planes_k)
+        nb = {k: v.view(np.uint8) != 0 if v.dtype == np.bool_ else v for k, v in nb.items()}
         up_ok = all(np.array_equal(convert.to_numpy(getattr(st, k), dtypes[k]), nb[k]) for k in nb)
         t_used, l_used = transfer.down_plan(nb["tape_len"], nb["alive"], cfg.tape_slots)
         err7 = max(diff(transfer.pack(st, small), transfer.pack_plain(st, small)),
@@ -854,7 +855,70 @@ def run_host_half(dev, cfg, smi, budgets=(("becstress", 2, 60), ("bectoken", 3, 
               "roundtrip_up": bool(up_ok), "roundtrip_down": bool(down_ok)})
         if err6 or err7 or not up_ok or not down_ok:
             raise AssertionError(f"K6/K7 differ from their twins or lose planes on the {kind} batch")
-    sync()
+    # the mesh tiers' download: one lane bucket per shard block (the small
+    # planes so give a table in the largest parameter class)
+    st, t_used = xfer_cases["tape_sliced"][2], xfer_cases["tape_sliced"][3]
+    shard_lanes = (8, max(1, cfg.lanes // 32))
+    for label, fields in (("big planes", transfer._BIG_DOWN), ("small planes", small)):
+        got = transfer.pack(st, fields, t_used, None, shard_lanes)
+        err7 = diff(got, transfer.pack_plain(st, fields, t_used, None, shard_lanes))
+        max_err["K7"] = max(max_err["K7"], err7)
+        emit({"phase": "compare", "kernel": "K7", "case": f"shard_lanes, {label}", "shard_lanes": list(shard_lanes),
+              "segments": len(fields) * shard_lanes[0], "t_used": t_used, "bytes": int(got.numel()), "k7_err": err7})
+        if err7:
+            raise AssertionError(f"K7 differs from its twin on a shard_lanes download of the {label}")
+    if on_card:  # a table past what one launch takes is refused, not split
+        refused = None
+        try:
+            transfer.pack(st, small, None, None, (16, 1))
+        except _build.KernelError as e:
+            refused = str(e)
+        emit({"phase": "compare", "kernel": "K7", "case": "table past the launch's limit",
+              "segments": len(small) * 16, "refused": refused})
+        if refused is None:
+            raise AssertionError("K7 took a table past XFER_MAX_SEGS instead of raising KernelError")
+    if on_card:
+        torch.cuda.synchronize()
+    return xfer_cases
+
+
+
+EXPECTED_ISSUES = {"becstress": [("101", 8)], "bectoken": [("101", 28), ("101", 104)]}
+
+
+def run_host_half(dev, cfg, smi, budgets=(("becstress", 2, 60), ("bectoken", 3, 120)),
+                  formula_widths=(8, 32, 96, 192), solve_flips=(0, 64, 4096)):
+    """Phases 5-8: K6/K7 and K5 against their twins, the whole analysis
+    (SymExecWrapper + fire_lasers) on becstress and BECToken, and the
+    times of K5-K7. Returns the kernels line's entries for K5-K7."""
+    import random
+
+    import numpy as np
+    import torch
+
+    from mythril_tpu_torch.disassembler.asm import assemble
+    from mythril_tpu_torch.laser.cuda import (
+        _build, backend, batch, convert, engine, inloop_solve, keccak, megakernel, solver, solver_cache, transfer,
+    )
+    from mythril_tpu_torch.laser.cuda.batch import StateBatch
+
+    on_card = dev.type == "cuda"
+
+    def sync():
+        if on_card:
+            torch.cuda.synchronize()
+
+    def diff(a, b):
+        """max |a - b| over two tensors (0 when equal)."""
+        if torch.equal(a, b):
+            return 0
+        return max(1, int((a.to(torch.int64) - b.to(torch.int64)).abs().max()))
+
+    max_err = {"K5": 0, "K6": 0, "K7": 0}
+    small = tuple(f for f in StateBatch._fields if f not in transfer._SKIP_DOWN and f not in transfer._BIG_DOWN)
+
+    # ---- 5. K6 / K7 against their twins at cfg ---------------------------
+    xfer_cases = compare_transfer(dev, cfg, max_err)
 
     # ---- 6. K5 against its twin ------------------------------------------
     from mythril_tpu_torch.smt import Not, Or, UGT, ULT, symbol_factory
@@ -1132,10 +1196,28 @@ def run_host_half(dev, cfg, smi, budgets=(("becstress", 2, 60), ("bectoken", 3, 
             raise AssertionError(f"K5 differs from its twin on main-path batch {i}")
 
     # ---- 8. times on the card ----------------------------------------------
-    def time_ms(fn, reps=20):
+    def time_ms(fn, reps=20, spin=False):
+        """Mean time of fn over reps: CUDA events around the reps back to
+        back (the host's time in each call counts when the card waits for
+        it), or, with ``spin``, around each call queued behind a spinning
+        kernel (the device's work alone). The rehearsal reports host
+        time, which is no device figure and is not kept."""
         fn()
         sync()
         reps = reps if on_card else 1
+        if on_card and spin:
+            total = 0.0
+            for _ in range(reps):
+                e0 = torch.cuda.Event(enable_timing=True)
+                e1 = torch.cuda.Event(enable_timing=True)
+                sync()
+                torch.cuda._sleep(2_000_000)
+                e0.record()
+                fn()
+                e1.record()
+                torch.cuda.synchronize()
+                total += e0.elapsed_time(e1)
+            return total / reps
         if on_card:
             e0 = torch.cuda.Event(enable_timing=True)
             e1 = torch.cuda.Event(enable_timing=True)
@@ -1181,7 +1263,8 @@ def run_host_half(dev, cfg, smi, budgets=(("becstress", 2, 60), ("bectoken", 3, 
     full6 = int(sum(s.rows * s.full for s in segs6))
     if on_card:
         ms6 = time_ms(lambda: transfer.unpack(staged))
-        plain6 = time_ms(lambda: transfer.unpack_plain(staged.buf[staged.header:], segs6), reps=5)
+        ms6_device = time_ms(lambda: transfer.unpack(staged), spin=True)
+        plain6 = time_ms(lambda: transfer.unpack_plain(staged.buf, segs6), reps=5)
         link_up = wall_ms(lambda: transfer.stage(parts6, dev))
         host_buf = torch.empty(staged.buf.numel(), dtype=torch.uint8, pin_memory=True)
         pinned_up = time_ms(lambda: staged.buf.copy_(host_buf, non_blocking=True))
@@ -1189,27 +1272,62 @@ def run_host_half(dev, cfg, smi, budgets=(("becstress", 2, 60), ("bectoken", 3, 
         def per_plane_up():
             for s_, plane in zip(segs6, staged.planes):
                 if s_.ship:
-                    src = staged.buf[staged.header + s_.src_off: staged.header + s_.src_off + s_.rows * s_.ship]
+                    src = staged.buf[s_.src_off: s_.src_off + s_.rows * s_.ship]
                     plane.view(-1).view(torch.uint8).view(s_.rows, s_.full)[:, : s_.ship].copy_(
                         src.view(s_.rows, s_.ship))
         per_plane6 = time_ms(per_plane_up)
     else:
-        ms6 = plain6 = time_ms(lambda: transfer.upload(parts6, dev))
+        ms6 = ms6_device = plain6 = time_ms(lambda: transfer.upload(parts6, dev))
         link_up = pinned_up = per_plane6 = None
-    bytes6 = ship6 + staged.header if on_card else ship6
-    bytes6 += full6
+    bytes6 = ship6 + full6  # the shipped bytes read, every plane written
 
     a7 = st7.alive.cpu().numpy()
     t7, l7 = transfer.down_plan(st7.tape_len.cpu().numpy(), a7, cfg.tape_slots)
+    calls7 = {"small": (small, None, None), "big": (transfer._BIG_DOWN, t7, l7)}
     ms7 = time_ms(lambda: (transfer.pack(st7, small), transfer.pack(st7, transfer._BIG_DOWN, t7, l7)))
     plain7 = time_ms(lambda: (transfer.pack_plain(st7, small), transfer.pack_plain(st7, transfer._BIG_DOWN, t7, l7)),
                      reps=5)
-    out_small, out_big = transfer.pack(st7, small), transfer.pack(st7, transfer._BIG_DOWN, t7, l7)
-    down_bytes = out_small.numel() + out_big.numel()
+    outs7 = {c: transfer.pack(st7, *a) for c, a in calls7.items()}
+    down_bytes = sum(o.numel() for o in outs7.values())
     bytes7 = 2 * down_bytes
+
+    # K7's yardstick: one torch.cat of the same byte views (bools as u8);
+    # a tape plane sliced to its used columns has no flat view, so its
+    # part is flattened (a copy) inside the call, as PyTorch must
+    def cat_parts(fields, t_, l_):
+        parts = []
+        for f in fields:
+            x = getattr(st7, f)
+            if t_ is not None and f in transfer._TAPE_PLANES:
+                x = x[:, : transfer._tape_cols(f, t_)]
+            if l_ is not None:
+                x = x[:l_]
+            parts.append(x.view(torch.uint8))
+        return parts
+
+    views7 = {c: cat_parts(*a) for c, a in calls7.items()}
+    for c, v in views7.items():
+        if not torch.equal(torch.cat([p.reshape(-1) for p in v]), outs7[c]):
+            raise AssertionError(f"torch.cat of the {c} download's views differs from K7's output")
+    k7_by_call = {}
+    for c, a in calls7.items():
+        k7_by_call[c] = {
+            "bytes": int(outs7[c].numel()),
+            "sliced_parts": sum(not p.is_contiguous() for p in views7[c]),
+            "ms": round(time_ms(lambda: transfer.pack(st7, *a)), 6),
+            "ms_device": round(time_ms(lambda: transfer.pack(st7, *a), spin=True), 6),
+            "library_ms": round(time_ms(lambda: torch.cat([p.reshape(-1) for p in views7[c]])), 6),
+            "library_ms_device": round(time_ms(lambda: torch.cat([p.reshape(-1) for p in views7[c]]), spin=True),
+                                       6),
+            "bound_ms": round(2 * outs7[c].numel() / HBM_BYTES_PER_S * 1e3, 9),
+        }
+    library7 = sum(k["library_ms"] for k in k7_by_call.values())
+    log = os.path.join(_build.BUILD_DIR, "transfer.log")
+    xfer_ptxas = ([ln.strip() for ln in open(log) if "registers" in ln or "spill" in ln]
+                  if on_card and os.path.exists(log) else [])
     if on_card:
         link_down = wall_ms(lambda: transfer.batch_to_host(st7))
-        dev_buf = torch.cat([out_small, out_big])
+        dev_buf = torch.cat([outs7["small"], outs7["big"]])
         host7 = torch.empty(dev_buf.numel(), dtype=torch.uint8, pin_memory=True)
         pinned_down = time_ms(lambda: host7.copy_(dev_buf, non_blocking=True))
         scratch7 = torch.empty(down_bytes, dtype=torch.uint8, device=dev)
@@ -1234,23 +1352,33 @@ def run_host_half(dev, cfg, smi, budgets=(("becstress", 2, 60), ("bectoken", 3, 
           "K5_sweeps_by_bucket": {f"{b[0]}x{b[1]}/I{int(o[0].shape[0])}/f{f}": int(sw.max())
                                   for b, o, f, _s, sw in k5_cases},
           "K6": {"from_analysis": bool(first_up), "shipped_bytes": ship6, "plane_bytes": full6,
+                 "segments": int(len(staged.table)) if on_card else None,
                  "upload_link_ms": link_up, "pinned_copy_ms": pinned_up, "per_plane_copy_ms": per_plane6},
           "K7": {"from_analysis": bool(first_down), "t_used": t7, "l_used": l7, "downloaded_bytes": int(down_bytes),
-                 "batch_to_host_ms": link_down, "pinned_copy_ms": pinned_down, "per_plane_copy_ms": per_plane7}})
+                 "by_call": k7_by_call,
+                 "batch_to_host_ms": link_down, "pinned_copy_ms": pinned_down, "per_plane_copy_ms": per_plane7},
+          "K6/K7 ptxas": xfer_ptxas})
 
-    def entry(kid, name, source, replaces, ms, plain, nbytes):
+    def entry(kid, name, source, replaces, ms, plain, nbytes, library=None):
         return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
                 "launches": e2e_counts[kid], "max_abs_err": max_err[kid], "ms": round(ms, 6),
                 "plain_ms": round(plain, 6), "bound_ms": round(nbytes / HBM_BYTES_PER_S * 1e3, 9),
-                "bound_by": "bytes", "library_ms": None}
+                "bound_by": "bytes", "library_ms": None if library is None else round(library, 6)}
 
+    # ms: CUDA events around back-to-back calls, as for every kernel here
+    # (K7: the two calls of a download); ms_device: each call queued
+    # behind a spinning kernel. K6 has no library call: none writes
+    # padded, zero-filled planes from one packed buffer. K7's library_ms
+    # is torch.cat of the same byte views, a call per download.
     return [
         entry("K5", "K5 solve", "mythril_tpu_torch/csrc/solve.cu", "mythril_tpu/laser/tpu/solver_jax.py:457",
               ms5, plain5, bytes5),
-        entry("K6", "K6 unpack", "mythril_tpu_torch/csrc/transfer.cu", "mythril_tpu/laser/tpu/transfer.py:236",
-              ms6, plain6, bytes6),
-        entry("K7", "K7 pack", "mythril_tpu_torch/csrc/transfer.cu", "mythril_tpu/laser/tpu/transfer.py:410",
-              ms7, plain7, bytes7),
+        dict(entry("K6", "K6 unpack", "mythril_tpu_torch/csrc/transfer.cu", "mythril_tpu/laser/tpu/transfer.py:236",
+                   ms6, plain6, bytes6), ms_device=round(ms6_device, 6)),
+        dict(entry("K7", "K7 pack", "mythril_tpu_torch/csrc/transfer.cu", "mythril_tpu/laser/tpu/transfer.py:410",
+                   ms7, plain7, bytes7, library7),
+             ms_device_by_call={c: k["ms_device"] for c, k in k7_by_call.items()},
+             library_ms_device_by_call={c: k["library_ms_device"] for c, k in k7_by_call.items()}),
     ]
 
 # Runs `python -m mythril_tpu_torch <argv[2:]>` in this process and writes

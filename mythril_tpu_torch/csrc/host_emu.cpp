@@ -3,7 +3,8 @@
 // standing in for the grids (and K1's rank, K3 and K4 run thread by
 // thread between their barriers) of step.cu, inloop.cu, megakernel.cu,
 // keccak.cu, solve.cu, transfer.cu, hist.cu, slice.cu and mesh.cu. Built with g++ by
-// tests/test_torch_kernel_logic.py and tests/test_torch_mesh_kernels.py; never used on the card.
+// tests/test_torch_kernel_logic.py, tests/test_torch_mesh_kernels.py and
+// tests/test_torch_transfer.py; never used on the card.
 #include <stdint.h>
 
 #include "hist.cuh"
@@ -207,14 +208,20 @@ int emu_solve(const int32_t* lits, const int32_t* nvars, const uint8_t* is_input
   return 0;
 }
 
-// K6 / K7 over host pointers (the table's pointers are host addresses)
-int emu_unpack(const uint8_t* buf, const int64_t* table, int nseg) {
-  for (int s = 0; s < nseg; ++s) unpack_segment(buf, table + s * SEG_COLS, 0, 1);
-  return 0;
-}
-
-int emu_pack(uint8_t* out, const int64_t* table, int nseg) {
-  for (int s = 0; s < nseg; ++s) pack_segment(out, table + s * SEG_COLS, 0, 1);
+// K6 / K7 (transfer.cu) over host pointers (the table's addresses are
+// host addresses): nblocks blocks of nthreads threads, each block staging
+// the table into its shared copy (filled with a pattern first, so a row
+// it fails to stage shows), then each of its threads taking its units of
+// the block's chunks, grid-stride; blocks and threads in either order.
+int emu_xfer(const XferSeg* table, int nseg, uint32_t total, int nblocks, int nthreads, int reverse) {
+  if (nseg < 0 || nseg > XFER_MAX_SEGS || nblocks < 1 || nthreads < 1) return 2;
+  if (!nseg || !total) return 0;
+  std::vector<XferSeg> sm(nseg);
+  each(nblocks, reverse, [&](int b) {
+    for (int64_t i = 0; i < nseg * (int64_t)sizeof(XferSeg); ++i) ((uint8_t*)sm.data())[i] = (uint8_t)(0xA5 ^ i);
+    each(nthreads, reverse, [&](int t) { xfer_stage(table, nseg, sm.data(), t, nthreads); });
+    each(nthreads, reverse, [&](int t) { xfer_thread(sm.data(), nseg, total, b, nblocks, t, nthreads); });
+  });
   return 0;
 }
 

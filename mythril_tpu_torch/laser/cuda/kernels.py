@@ -148,8 +148,7 @@ _SIGS = {
     ("megakernel", "mt_round_epilogue"): [_P(Planes), _P(Planes)] + [_V] * 8 + [_I, _I, _I, _V, _I, _V],
     ("megakernel", "mt_round_epilogue_info"): [_V],
     ("solve", "mt_solve"): [_V] * 7 + [_I] * 4 + [ctypes.c_uint32, _V],
-    ("transfer", "mt_unpack"): [_V, _V, _I, ctypes.c_int64, _V],
-    ("transfer", "mt_pack"): [_V, _V, _I, ctypes.c_int64, _V],
+    ("transfer", "mt_xfer"): [_V, _I, ctypes.c_uint32, _V],
     ("hist", "mt_op_hist"): [_V, _I, _I] + [_V] * 6 + [_I, _V, _V, _I, _V],
     ("slice", "mt_slice_ctl"): [_V, _V, _I, _V, _I, _V],
     ("mesh", "mt_mesh_plan"): [_P(Planes), _I, _I] + [_V] * 5 + [_I, _V],

@@ -19,12 +19,15 @@ that cross the host link are the reference's:
   per shard block (``shard_lanes``: each plane is then one segment per
   block).
 
-Kernels (``csrc/transfer.cu``): one launch per direction; ``blockIdx.y``
-picks the plane, the blocks of that row stride over its bytes, in 4-byte
-units where the offsets allow. Bound on the H100: device-memory bytes
-(each plane's bytes read once and written once); the host link is timed
-separately against a plain pinned ``copy_``. On CPU tensors the plain
-twins (``unpack_plain``, ``pack_plain``) do the same with torch views.
+Kernels (``csrc/transfer.cu``): K6 and K7 are one launch each of the
+same kernel over a table of segments (``XFER_SEG``, one copy each: rows
+of a shipped prefix, zeros past it), built here in one vectorised pass
+and passed by value in the launch's parameters. The grid is balanced
+over the table's total 16-byte units, not one grid row per plane.
+Bound on the H100: device-memory bytes (each plane's bytes read once
+and written once); the host link is timed separately against a plain
+pinned ``copy_``. On CPU tensors the plain twins (``unpack_plain``,
+``pack_plain``) do the same with torch views.
 
 The reference compiles one XLA variant per (tape bucket, absent groups)
 pair and pins a single full-size variant on accelerators
@@ -48,7 +51,14 @@ log = logging.getLogger(__name__)
 unpack_launches = 0  # K6 launches (CUDA path only)
 pack_launches = 0  # K7 launches (CUDA path only)
 
-SEG_COLS = 6  # csrc/transfer.cuh table row width
+# csrc/transfer.cuh XferSeg: one segment of a K6/K7 launch
+XFER_SEG = np.dtype([
+    ("src", "<u8"), ("dst", "<u8"), ("rows", "<u4"), ("w_out", "<u4"), ("w_in", "<u4"),
+    ("w_copy", "<u4"), ("upr", "<u4"), ("flags", "<u4"), ("first", "<u4"), ("pad", "<u4"),
+])
+XFER_MAX_SEGS = 672  # csrc/transfer.cuh: the most segments a launch takes
+XF_BOOL = 1
+_XFER_LIMIT = 1 << 31  # a segment's bytes and a table's units stay below this
 
 # planes the host-side consumers never read: rebuilt as zeros on the way
 # down (a downloaded batch is never re-uploaded)
@@ -189,67 +199,110 @@ def unpack_plain(buf: torch.Tensor, segs) -> list:
     return out
 
 
-def _launch(fn_name: str, data: int, table: int, nseg: int, max_bytes: int, dev) -> None:
-    """One K6 (``mt_unpack``) or K7 (``mt_pack``) launch on the current
-    stream; ``data`` is the buffer read (K6) or written (K7), ``table``
-    the device address of the segment table."""
+def _xfer_table(src, dst, rows, w_out, w_in, w_copy, flags):
+    """A K6/K7 table: per segment, ``rows`` rows of ``w_out`` bytes at
+    ``dst``, row r's first ``w_copy`` bytes from ``src + r * w_in`` and
+    zeros past them (``w_copy`` 0: all zeros). Segments whose rows lie
+    back to back become one row, empty ones are dropped, and each gets
+    its unit count's exclusive prefix (``first``): 16-byte units of a
+    row where the addresses and widths are 16-byte aligned (``upr`` a
+    row), else 16-byte pieces of the flat output done byte by byte
+    (``upr`` 0). Returns (table, total units, the index of each kept
+    segment in the input)."""
+    src, dst, rows, w_out, w_in, w_copy, flags = (
+        np.asarray(a, np.int64).reshape(-1) for a in (src, dst, rows, w_out, w_in, w_copy, flags)
+    )
+    n = rows * w_out
+    keep = np.flatnonzero(n > 0)
+    src, dst, rows, w_out, w_in, w_copy, flags, n = (
+        a[keep] for a in (src, dst, rows, w_out, w_in, w_copy, flags, n)
+    )
+    zero = w_copy == 0
+    flat = zero | ((w_in == w_out) & (w_copy == w_out))
+    src = np.where(zero, 0, src)
+    rows, w_out = np.where(flat, 1, rows), np.where(flat, n, w_out)
+    w_in = np.where(zero, 0, np.where(flat, n, w_in))
+    w_copy = np.where(flat & ~zero, n, w_copy)
+    vec = ((dst % 16 == 0) & (src % 16 == 0)
+           & ((rows == 1) | ((w_out % 16 == 0) & (w_in % 16 == 0) & (w_copy % 16 == 0))))
+    upr = np.where(vec, (w_out + 15) // 16, 0)
+    units = np.where(vec, rows * upr, (n + 15) // 16)
+    ends = np.cumsum(units)
+    total = int(ends[-1]) if len(ends) else 0
+    if len(units) > XFER_MAX_SEGS:
+        raise _build.KernelError(f"transfer: {len(units)} segments, a launch takes {XFER_MAX_SEGS}")
+    if len(n) and (int(n.max()) >= _XFER_LIMIT or total >= _XFER_LIMIT):
+        raise _build.KernelError("transfer: a segment or the table is past 2**31 bytes or units")
+    tab = np.zeros(len(units), XFER_SEG)
+    for name, col in (("src", src), ("dst", dst), ("rows", rows), ("w_out", w_out), ("w_in", w_in),
+                      ("w_copy", w_copy), ("upr", upr), ("flags", flags), ("first", ends - units)):
+        tab[name] = col
+    return tab, total, keep
+
+
+def _launch(tab: np.ndarray, total: int, dev) -> None:
+    """One launch of ``mt_xfer`` (K6 or K7) on the current stream; the
+    table travels in the launch's parameters."""
     from mythril_tpu_torch.laser.cuda import kernels
 
-    rc = kernels._fn("transfer", fn_name)(
-        ctypes.c_void_p(data), ctypes.c_void_p(table), nseg, max_bytes, _build.stream(dev)
+    rc = kernels._fn("transfer", "mt_xfer")(
+        ctypes.c_void_p(tab.ctypes.data), len(tab), total, _build.stream(dev)
     )
-    _build.check(rc, fn_name, "transfer")
+    _build.check(rc, "mt_xfer", "transfer")
 
 
-def _up_table(segs, planes) -> np.ndarray:
-    """K6's table: [src_off, dst_ptr, rows, ship, full, flags] per plane."""
-    tab = np.zeros((len(segs), SEG_COLS), np.int64)
-    for i, (s, t) in enumerate(zip(segs, planes)):
-        tab[i] = (s.src_off if s.ship else -1, t.data_ptr(), s.rows, s.ship or 0, s.full,
-                  1 if s.dtype == np.bool_ else 0)
-    return tab
+def _up_table(segs, planes, src_base: int):
+    """K6's table: plane i from the shipped bytes at ``src_base +
+    src_off`` (zeros when absent) into ``planes[i]``."""
+    shipped = np.array([bool(s.ship) for s in segs], bool)
+    ship = np.array([s.ship or 0 for s in segs], np.int64)
+    return _xfer_table(
+        np.where(shipped, src_base + np.array([s.src_off for s in segs], np.int64), 0),
+        [t.data_ptr() for t in planes],
+        [s.rows for s in segs],
+        [s.full for s in segs],
+        ship,
+        ship,
+        [XF_BOOL if s.dtype == np.bool_ else 0 for s in segs],
+    )
 
 
 class Staged:
-    """An upload on the card before K6: the device buffer (segment table
-    then the shipped bytes), its segments and the planes K6 will fill."""
+    """An upload on the card before K6: the device buffer of shipped
+    bytes, its segments, the planes K6 will fill and K6's table."""
 
-    __slots__ = ("buf", "header", "segs", "planes")
+    __slots__ = ("buf", "segs", "planes", "table", "total")
 
-    def __init__(self, buf, header, segs, planes):
-        self.buf, self.header, self.segs, self.planes = buf, header, segs, planes
+    def __init__(self, buf, segs, planes, table, total):
+        self.buf, self.segs, self.planes, self.table, self.total = buf, segs, planes, table, total
 
 
 def stage(arrays_full_shapes, dev) -> Staged:
     """Serialize into one pinned host buffer and start its one copy to
-    the card. The planes exist before the table is written: the table
-    holds their device pointers and rides in the same buffer."""
+    the card; K6's table names the device buffer and the planes."""
     segs, shipped = _up_spec(arrays_full_shapes)
     planes = [
         torch.empty(s.shape, dtype=convert.torch_dtype(s.dtype), device=dev) for s in segs
     ]
-    header = len(segs) * SEG_COLS * 8
-    nbytes = header + sum(a.nbytes for a in shipped)
+    nbytes = sum(a.nbytes for a in shipped)
     host = torch.empty(nbytes, dtype=torch.uint8, pin_memory=True)
     hv = host.numpy()
-    hv[:header] = _up_table(segs, planes).view(np.uint8).ravel()
-    off = header
+    off = 0
     for a in shipped:
         hv[off: off + a.nbytes] = a.view(np.uint8).ravel()
         off += a.nbytes
     buf = torch.empty(nbytes, dtype=torch.uint8, device=dev)
     buf.copy_(host, non_blocking=True)
-    return Staged(buf, header, segs, planes)
+    table, total, _kept = _up_table(segs, planes, buf.data_ptr())
+    return Staged(buf, segs, planes, table, total)
 
 
 def unpack(staged: Staged) -> list:
     """K6: write every plane of a staged upload in full."""
-    if staged.segs:
+    if staged.total:
         global unpack_launches
         unpack_launches += 1
-        base = staged.buf.data_ptr()
-        _launch("mt_unpack", base + staged.header, base, len(staged.segs),
-                max(s.rows * s.full for s in staged.segs), staged.buf.device)
+        _launch(staged.table, staged.total, staged.buf.device)
     return staged.planes
 
 
@@ -359,6 +412,66 @@ def pack_plain(st: StateBatch, fields, t_used=None, l_used=None, shard_lanes=Non
     return torch.cat(parts)
 
 
+class _PackPlan:
+    """What a K7 call's table takes from the planes' shapes and the cuts
+    alone, kept per (fields, cuts, shapes): per (plane, lane block)
+    segment its plane, its offset in the plane, rows, shipped and source
+    row bytes and its offset in the output; and the table itself for
+    16-byte-aligned planes and output, short of its addresses."""
+
+    __slots__ = ("field", "rel", "rows", "ship", "srow", "off", "nbytes", "table", "total", "kept")
+
+    def __init__(self, xs, fields, t_used, l_used, shard_lanes):
+        n, lb = shard_lanes if shard_lanes is not None else (1, None)
+        cols = np.zeros((4, len(fields)), np.int64)  # rows, ship, srow, block stride
+        for i, (name, x) in enumerate(zip(fields, xs)):
+            if not x.is_contiguous():
+                raise _build.KernelError(f"pack: plane {name} is not contiguous")
+            rows, ship, srow = _down_cut(x, name, t_used, l_used)
+            cols[:, i] = (rows if lb is None else lb, ship, srow, x.shape[0] // n * srow)
+        self.rows, self.ship, self.srow, stride = (np.repeat(c, n) for c in cols)
+        self.field = np.repeat(np.arange(len(fields)), n)
+        self.rel = np.tile(np.arange(n, dtype=np.int64), len(fields)) * stride
+        nbytes = self.rows * self.ship
+        self.off = np.cumsum(nbytes) - nbytes
+        self.nbytes = int(nbytes.sum())
+        # the table at 16-byte-aligned stand-in addresses: the real call's
+        # differs only in its addresses when its own are aligned too
+        base = (self.field + 1) << 32
+        self.table, self.total, self.kept = _xfer_table(base + self.rel, (1 << 32) + self.off, self.rows, self.ship,
+                                                    self.srow, self.ship, np.zeros_like(self.rows))
+
+
+_PACK_PLANS = {}
+
+
+def _pack_plan(st: StateBatch, fields, t_used=None, l_used=None, shard_lanes=None):
+    """K7's plan for these planes and cuts (cached), and the planes'
+    addresses."""
+    xs = [getattr(st, name) for name in fields]
+    key = (tuple(fields), t_used, l_used, shard_lanes, tuple([(x.shape, x.dtype, x.is_contiguous()) for x in xs]))
+    plan = _PACK_PLANS.get(key)
+    if plan is None:
+        if len(_PACK_PLANS) >= 256:
+            _PACK_PLANS.clear()
+        plan = _PACK_PLANS[key] = _PackPlan(xs, fields, t_used, l_used, shard_lanes)
+    return plan, np.array([x.data_ptr() for x in xs], np.int64)
+
+
+def _pack_table(plan: _PackPlan, ptrs: np.ndarray, out_base: int):
+    """K7's table for ``plan`` over planes at ``ptrs``, into
+    ``out_base``: the plan's table with its addresses filled in, or,
+    where a plane or the output is not 16-byte aligned, built anew."""
+    if (ptrs & 15).any() or out_base & 15:
+        src = ptrs[plan.field] + plan.rel
+        return _xfer_table(src, out_base + plan.off, plan.rows, plan.ship, plan.srow, plan.ship,
+                           np.zeros_like(plan.rows))[:2]
+    table = plan.table.copy()
+    table["src"] = ptrs[plan.field[plan.kept]] + plan.rel[plan.kept]
+    table["dst"] = out_base + plan.off[plan.kept]
+    return table, plan.total
+
+
 def pack(st: StateBatch, fields, t_used=None, l_used=None, shard_lanes=None) -> torch.Tensor:
     """K7 on a card batch (the twin on a CPU batch). With ``shard_lanes``
     = (n, lb) each plane ships the first ``lb`` lanes of each of its
@@ -366,29 +479,13 @@ def pack(st: StateBatch, fields, t_used=None, l_used=None, shard_lanes=None) -> 
     dev = st.alive.device
     if dev.type == "cpu":
         return pack_plain(st, fields, t_used, l_used, shard_lanes)
-    n, lb = shard_lanes if shard_lanes is not None else (1, None)
-    tab = np.zeros((len(fields) * n, SEG_COLS), np.int64)
-    off = 0
-    max_bytes = 0
-    for i, name in enumerate(fields):
-        x = getattr(st, name)
-        if not x.is_contiguous():
-            raise _build.KernelError(f"pack: plane {name} is not contiguous")
-        rows, ship, srow = _down_cut(x, name, t_used, l_used)
-        if shard_lanes is not None:
-            rows = lb
-        for b in range(n):
-            src = x.data_ptr() + b * (x.shape[0] // n) * srow
-            tab[i * n + b] = (src, off, rows, ship, srow, 0)
-            off += rows * ship
-        max_bytes = max(max_bytes, rows * ship)
-    out = torch.empty(off, dtype=torch.uint8, device=dev)
-    if not fields or off == 0:
-        return out
-    table = torch.from_numpy(tab).pin_memory().to(dev, non_blocking=True)
-    global pack_launches
-    pack_launches += 1
-    _launch("mt_pack", out.data_ptr(), table.data_ptr(), len(tab), max_bytes, dev)
+    plan, ptrs = _pack_plan(st, fields, t_used, l_used, shard_lanes)
+    out = torch.empty(plan.nbytes, dtype=torch.uint8, device=dev)
+    table, total = _pack_table(plan, ptrs, out.data_ptr())
+    if total:
+        global pack_launches
+        pack_launches += 1
+        _launch(table, total, dev)
     return out
 
 

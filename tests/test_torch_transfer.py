@@ -9,10 +9,13 @@ download buffers) and the planes on each side must be the reference's
 bit for bit. The port has no monomorphic layout (its kernels take the
 prefixes as launch arguments): against the reference's, pinned on the
 reference side alone, the planes must agree and the port must ship the
-sliced bytes. The kernels' per-segment source, compiled as host C++,
-must equal the plain twins."""
+sliced bytes. The kernels' source, compiled as host C++ and run as the
+card's grid runs it (several blocks of several threads, in either order),
+must equal the plain twins byte for byte, on every case of
+``test_kernel_source_equals_twins``."""
 
 import ctypes
+import types
 
 import numpy as np
 import pytest
@@ -255,22 +258,144 @@ def test_packed_frontier_roundtrip_property():
         assert (back.job_id[staged:] == 0).all()
 
 
-def _emu(name):
-    fn = getattr(_build.host_emulation(), name)
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int]
+# (blocks, threads, reverse): the grid the host emulation stands in for
+_GRIDS = ((1, 32, 0), (3, 32, 1), (2, 96, 0), (7, 64, 1))
+_PATTERN = 0xA5  # what every output holds before a run: a byte the kernel skips shows
+
+
+def _emu_xfer(table, total, outs, check):
+    """K6/K7's source (csrc/transfer.cuh, run as transfer.cu's grid) on
+    host pointers, once per grid of ``_GRIDS``: ``outs`` (the tensors the
+    table writes) are reset to a pattern before each run, and ``check``
+    is called after it."""
+    fn = _build.host_emulation().emu_xfer
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_uint32, ctypes.c_int, ctypes.c_int, ctypes.c_int]
     fn.restype = ctypes.c_int
-    return fn
+    table = np.ascontiguousarray(table)
+    for blocks, threads, reverse in _GRIDS:
+        for o in outs:
+            o.view(torch.uint8).fill_(_PATTERN)
+        assert fn(table.ctypes.data, len(table), total, blocks, threads, reverse) == 0
+        check((blocks, threads, reverse))
 
 
-@pytest.mark.parametrize("case", ["full", "sliced", "absent"])
+def _raw(t: torch.Tensor) -> np.ndarray:
+    return t.contiguous().view(torch.uint8).numpy()
+
+
+def _k6_equals_twin(parts):
+    """K6 on ``parts`` ([(array or None, full shape, dtype)]) against
+    ``unpack_plain``, byte for byte (bool planes included)."""
+    buf_t, segs = convert.upload_to_torch(parts, "cpu")
+    twin = port_transfer.unpack_plain(buf_t, segs)
+    outs = [torch.empty(s.shape, dtype=convert.torch_dtype(s.dtype)) for s in segs]
+    table, total, _kept = port_transfer._up_table(segs, outs, buf_t.data_ptr())
+
+    def check(grid):
+        for i, (o, t) in enumerate(zip(outs, twin)):
+            assert np.array_equal(_raw(o), _raw(t)), (grid, i)
+
+    _emu_xfer(table, total, outs, check)
+    return table, twin
+
+
+def _k7_equals_twin(st, fields, t_used=None, l_used=None, shard_lanes=None):
+    """K7 on ``st`` against ``pack_plain``."""
+    plain = port_transfer.pack_plain(st, fields, t_used, l_used, shard_lanes).numpy()
+    plan, ptrs = port_transfer._pack_plan(st, fields, t_used, l_used, shard_lanes)
+    assert plan.nbytes == plain.size
+    out = torch.empty(plan.nbytes, dtype=torch.uint8)
+    table, total = port_transfer._pack_table(plan, ptrs, out.data_ptr())
+    # the cached plan's table, addresses filled in, is the table built anew
+    fresh, fresh_total, _kept = port_transfer._xfer_table(
+        ptrs[plan.field] + plan.rel, out.data_ptr() + plan.off, plan.rows, plan.ship, plan.srow, plan.ship,
+        np.zeros_like(plan.rows))
+    assert np.array_equal(table, fresh) and total == fresh_total
+
+    def check(grid):
+        assert np.array_equal(out.numpy(), plain), grid
+
+    _emu_xfer(table, total, [out], check)
+    return table
+
+
+def _bool_bytes(rng, shape):
+    """A bool array whose bytes are 0-255 (numpy keeps them as given)."""
+    return rng.integers(0, 256, shape, dtype=np.uint8).view(np.bool_)
+
+
+def _odd_batch(rng, planes):
+    """A stand-in batch for K7: {name: (dtype, shape)} as CPU tensors,
+    each starting one element past a 16-byte boundary (bools 0/1, as
+    every bool plane of a batch on the card is: K7 copies bytes as they
+    are)."""
+    st = {}
+    for name, (dt, shape) in planes.items():
+        raw = rng.integers(0, 256, shape[:-1] + (shape[-1] * np.dtype(dt).itemsize,), dtype=np.uint8)
+        x = torch.from_numpy(raw != 0 if dt == np.bool_ else raw.view(dt).copy())
+        isz = x.element_size()
+        mem = torch.empty(x.numel() * isz + 16 + isz, dtype=torch.uint8)
+        head = -mem.data_ptr() % 16 + isz
+        st[name] = mem[head: head + x.numel() * isz].view(x.dtype).view(x.shape)
+        st[name].copy_(x)
+        assert st[name].data_ptr() % 16 == isz
+    return types.SimpleNamespace(alive=torch.ones(8, dtype=torch.bool), **st)
+
+
+_CASES = ("full", "sliced", "absent", "shard_lanes", "bool_bytes", "one_byte_rows", "unaligned", "no_fields",
+          "many_blocks")
+
+
+@pytest.mark.parametrize("case", _CASES)
 def test_kernel_source_equals_twins(case):
-    """K6 and K7's per-segment code (csrc/transfer.cuh) as host C++, on
-    host pointers, against unpack_plain and pack_plain."""
-    cfg = dict(small_cfg(), tape_slots=64)
-    nb = random_batch(cfg, tape_len=5 if case == "sliced" else None,
+    """K6 and K7's source (csrc/transfer.cuh) as host C++, on host
+    pointers, run as the grid runs it (several blocks of several
+    threads, grid-stride, threads in either order, the table staged per
+    block), against unpack_plain and pack_plain, byte for byte."""
+    rng = np.random.default_rng(11)
+    if case in ("one_byte_rows", "unaligned", "no_fields"):
+        if case == "one_byte_rows":
+            # rows of one shipped byte in wider rows, and 1-byte planes
+            parts = [(rng.integers(0, 256, (8, 1), dtype=np.uint8), (8, 7), np.uint8),
+                     (_bool_bytes(rng, (8, 1)), (8, 3), np.bool_),
+                     (rng.integers(-128, 128, (8,), dtype=np.int8), (8,), np.int8),
+                     (None, (8, 1), np.uint8)]
+            st = _odd_batch(rng, {"tape_op": (np.uint8, (8, 16)), "tape_a": (np.bool_, (8, 5)),
+                                  "tape_meta": (np.uint8, (8, 1))})
+            fields, t_used, l_used = ("alive", "tape_op", "tape_a", "tape_meta"), 1, None
+        elif case == "unaligned":
+            # shipped prefixes that are no multiple of 16 bytes, source and
+            # destination offsets off 16-byte alignment, a flat plane whose
+            # last 16-byte unit is short
+            parts = [(rng.integers(0, 256, (8, 3), dtype=np.uint8), (8, 3), np.uint8),
+                     (rng.integers(0, 256, (8, 3), dtype=np.uint8), (8, 5), np.uint8),
+                     (rng.integers(-2**31, 2**31, (8, 3), dtype=np.int32), (8, 5), np.int32),
+                     (rng.integers(0, 2**32, (8, 5), dtype=np.uint32), (8, 8), np.uint32),
+                     (_bool_bytes(rng, (8, 2)), (8, 6), np.bool_),
+                     (rng.integers(0, 256, (8, 33), dtype=np.uint8), (8, 33), np.uint8)]
+            st = _odd_batch(rng, {"tape_op": (np.int32, (8, 13)), "tape_meta": (np.uint8, (8, 37)),
+                                  "calldata": (np.uint8, (8, 19))})
+            fields, t_used, l_used = ("alive", "tape_op", "tape_meta", "calldata"), 5, 6
+        else:
+            parts, st, fields, t_used, l_used = [], _odd_batch(rng, {}), (), None, None
+        table, _twin = _k6_equals_twin(parts)
+        table7 = _k7_equals_twin(st, fields, t_used, l_used)
+        if case == "unaligned":
+            assert not table["upr"].all() and table["upr"].any() and not table7["upr"][1:].any()
+        if case == "no_fields":
+            assert len(table) == len(table7) == 0
+        return
+    # 16 lanes make every shipped plane a multiple of 16 bytes: the
+    # sliced tape rows and the bool planes then take the 16-byte units
+    cfg = dict(small_cfg(), tape_slots=64, lanes={"many_blocks": 64, "sliced": 16, "bool_bytes": 16}.get(case, 8))
+    nb = random_batch(cfg, tape_len=5 if case in ("sliced", "shard_lanes") else None,
                       zero_groups=("memory",) if case == "absent" else (), seed=7)
+    if case == "bool_bytes":
+        for name, arr in nb.items():
+            if arr.dtype == np.bool_:
+                nb[name] = _bool_bytes(rng, arr.shape)
     shapes = batch_shapes(BatchConfig(**cfg))
-    t_used = 16 if case == "sliced" else cfg["tape_slots"]
+    t_used = 16 if case in ("sliced", "shard_lanes") else cfg["tape_slots"]
     parts = []
     for name, (shape, dtype) in shapes.items():
         arr = nb[name]
@@ -279,36 +404,35 @@ def test_kernel_source_equals_twins(case):
         elif name in port_transfer._TAPE_PLANES:
             arr = arr[:, : port_transfer._tape_cols(name, t_used)]
         parts.append((arr, shape, dtype))
-    buf_t, segs = convert.upload_to_torch(parts, "cpu")
-    buf = buf_t.numpy()
-    twin = port_transfer.unpack_plain(buf_t, segs)
-    outs = [np.zeros(s.shape, s.dtype) for s in segs]
-
-    class _Ptr:  # what _up_table reads off a plane
-        def __init__(self, a):
-            self.a = a
-
-        def data_ptr(self):
-            return self.a.ctypes.data
-
-    table = np.ascontiguousarray(port_transfer._up_table(segs, [_Ptr(o) for o in outs]))
-    assert _emu("emu_unpack")(buf.ctypes.data, table.ctypes.data, len(segs)) == 0
-    for name, o, t in zip(shapes, outs, twin):
-        assert np.array_equal(o, convert.to_numpy(t, o.dtype)), name
-    # K7 over the unpacked planes, tape columns and lanes sliced
+    table, twin = _k6_equals_twin(parts)
+    if case == "bool_bytes":  # bool planes in 16-byte units, normalised a word at a time
+        bools = (table["flags"] & port_transfer.XF_BOOL) > 0
+        assert bools.sum() >= 8 and (table["upr"][bools] > 0).all()
+    if case == "sliced":  # the sliced tape planes keep their rows, in 16-byte units
+        assert (table["rows"] > 1).sum() == 7 and (table["upr"][table["rows"] > 1] > 0).all()
+    if case == "many_blocks":  # one segment's units span several blocks' chunks
+        assert table["upr"].max() * table["rows"].max() > 4 * 96 * 7
     st = StateBatch(*twin)
     fields = port_transfer._BIG_DOWN + ("alive", "tape_len")
-    l_used = 4 if case != "full" else None
-    plain = port_transfer.pack_plain(st, fields, t_used, l_used).numpy()
-    tab = np.zeros((len(fields), port_transfer.SEG_COLS), np.int64)
-    off = 0
-    keep = []
-    for i, name in enumerate(fields):
-        x = getattr(st, name).contiguous()
-        keep.append(x)
-        rows, ship, srow = port_transfer._down_cut(x, name, t_used, l_used)
-        tab[i] = (x.data_ptr(), off, rows, ship, srow, 0)
-        off += rows * ship
-    out = np.zeros(off, np.uint8)
-    assert _emu("emu_pack")(out.ctypes.data, tab.ctypes.data, len(fields)) == 0
-    assert np.array_equal(out, plain)
+    if case == "shard_lanes":
+        table7 = _k7_equals_twin(st, fields, t_used, shard_lanes=(4, 1))
+        assert len(table7) == 4 * len(fields)
+    else:
+        table7 = _k7_equals_twin(st, fields, t_used, 4 if case in ("sliced", "absent") else None)
+        if case == "sliced":
+            assert ((table7["rows"] > 1) & (table7["upr"] > 0)).sum() == 5
+
+
+def test_xfer_table_limits():
+    """A table past what one launch takes raises KernelError; it is not
+    split or sent another way."""
+    n = port_transfer.XFER_MAX_SEGS
+    ones = np.ones(n, np.int64)
+    table, total, _kept = port_transfer._xfer_table(16 * ones, 16 * ones, ones, 16 * ones, 16 * ones, 16 * ones,
+                                                    0 * ones)
+    assert len(table) == n and total == n and table.dtype.itemsize == 48
+    ones = np.ones(n + 1, np.int64)
+    with pytest.raises(_build.KernelError, match="segments"):
+        port_transfer._xfer_table(16 * ones, 16 * ones, ones, 16 * ones, 16 * ones, 16 * ones, 0 * ones)
+    with pytest.raises(_build.KernelError, match="2\\*\\*31"):
+        port_transfer._xfer_table([16], [16], [1 << 16], [1 << 15], [1 << 15], [1 << 15], [0])
