@@ -54,26 +54,39 @@ phases that each print one JSON line:
    per-plane copy_ sequence; K6 and each K7 call also queued behind a
    spinning kernel (ms_device), K7's calls beside torch.cat of the same
    byte views (library_ms), and K6/K7's registers and spills;
-9. K8 (the retired-opcode histogram) against its twin after each of 64
-   forking steps of a full-width BECToken batch, and the sync slice loop
-   (K9 + K1 + K8: engine.run_with_stats, and engine.run) against the
-   twin's loop for one 512-step slice at DEFAULT_BATCH_CFG, every plane
-   plus the histogram; run_fused(with_stats=True) against the twin on
-   becstress, and the super-round's wall with stats on and off;
+9. K8 (the retired-opcode histogram, standalone) against its twin after
+   each of 64 forking steps of a full-width BECToken batch; K1's stats
+   instance (the histogram folded inside the launch) as one launch of
+   those 64 steps against the twin's steps and histogram, on grids of
+   the lanes' own size, 1 and 8 blocks, from a histogram seeded near
+   2^32 (it must wrap), and a launch the control word stops (it must add
+   nothing); the sync slice loop (one K1 launch a slice:
+   engine.run_with_stats and engine.run) against the twin's loop for one
+   512-step slice at DEFAULT_BATCH_CFG, every plane plus the histogram,
+   each call launching one K1 and no K8 or K9; K9 (the quiescence
+   read's kernel) against its twin, the whole control word, from fresh,
+   running, stopped and spent words with max_steps 0, below, at and
+   above t, on running and quiescent batches, and engine.any_running on
+   each; run_fused(with_stats=True)
+   against the twin on becstress and BECToken, one K1 launch a round and
+   no K8, and the super-round's wall and enqueue with stats on and off;
 10. the port's CLI on the card, `python -m mythril_tpu_torch analyze
    --strategy cuda-batch --enable-iprof -o json` on becstress (2 tx,
    60 s) in a subprocess: it must report [101@8] and a device opcode
-   profile, with K1-K9 launched in that run (counted inside the
-   subprocess from just before the CLI starts);
+   profile, with K1 (stats instance among them), K3, K4, K6 and K7
+   launched in that run and no K8 (counted inside the subprocess from
+   just before the CLI starts);
 11. BECToken (3 tx, 120 s) with MYTHRIL_TPU_FUSED=off: the sync slice
    loop must run device slices, report [101@28, 101@104] and degrade no
-   round; then the times of K8 and K9;
+   round; then the times of K8 and K9 through their engine entry points
+   (and of each launch alone, its arguments built once: launch_ms);
 12. the mesh tiers, 8 lane shards of the one card (64 lanes each):
    K10 (steal plan, counts), K11 (lane moves) and K12 (deal) against
    their twins on tagged batches, K1 and K4 with the shard count,
    run_fused_mesh (4 rounds x 256 steps, every seed in shard 0, under
-   sync debug mode "error") on becstress (stats on) and BECToken, and
-   one sharded_round with the deal, each against the twin's run; the
+   sync debug mode "error", one K1 launch a round) on becstress (stats
+   on) and BECToken, and one sharded_round with the deal (one K1 launch,
+   K10, K12, no K9), each against the twin's run; the
    skew demos (MULTICHIP_r06's 64 lanes with 16 spinning on shards 0-1:
    one steal of 12 lanes, occupancy [2]*8, 4096 steps; and 512 lanes
    with 128 spinning: 96 lanes, [16]*8), held against the twin too;
@@ -234,9 +247,11 @@ def main():
     dev = torch.device("cuda")
     entries = run(dev, batch.DEFAULT_BATCH_CFG, smi)
     entries += run_host_half(dev, batch.DEFAULT_BATCH_CFG, smi)
-    entries += run_stats_and_sync(dev, batch.DEFAULT_BATCH_CFG, smi)
+    stats_entries, stats_k1_err = run_stats_and_sync(dev, batch.DEFAULT_BATCH_CFG, smi)
+    entries += stats_entries
     mesh_entries, seg_err = run_mesh(dev, batch.DEFAULT_BATCH_CFG, smi)
-    for e in entries:  # K1 and K4 also ran with a shard count
+    seg_err["K1"] = max(seg_err["K1"], stats_k1_err)
+    for e in entries:  # K1 and K4 also ran with a shard count, K1 with stats
         kid = e["name"].split()[0]
         if kid in seg_err:
             e["max_abs_err"] = max(e["max_abs_err"], seg_err[kid])
@@ -662,7 +677,8 @@ def run(dev, cfg, smi, k1_steps=64, rounds=16, steps_per_round=256):
         kernels.launch_step_run(a_ref, 1)
         sync()
         same, _err = planes_equal(s_ref, after)
-        emit({"phase": "timing", "what": "K1 registers and spills", **info, "ptxas": ptxas,
+        emit({"phase": "timing", "what": "K1 registers and spills", **info,
+              "stats_instance": kernels.step_run_info(dev, stats=True), "ptxas": ptxas,
               "refused_cooperative_launch": refused, "next_launch_exact": same})
         if refused is None or "cooperative" not in refused.lower():
             raise AssertionError(f"an oversized cooperative K1 launch did not raise its refusal: {refused}")
@@ -1387,13 +1403,10 @@ def run_host_half(dev, cfg, smi, budgets=(("becstress", 2, 60), ("bectoken", 3, 
 # before the CLI's own exit check.
 CLI_RUNNER = r"""
 import json, runpy, sys
+from chip_smoke import launch_counters
 from mythril_tpu_torch.interfaces import cli
-from mythril_tpu_torch.laser.cuda import engine, inloop_solve, keccak, megakernel, solver, transfer
 from mythril_tpu_torch.laser.evm.iprof import InstructionProfiler
-counters = {"K1": (engine, "launches"), "K1_steps": (engine, "steps_run"), "K2": (keccak, "launches"),
-            "K3": (inloop_solve, "launches"), "K4": (megakernel, "launches"), "K5": (solver, "launches"),
-            "K6": (transfer, "unpack_launches"), "K7": (transfer, "pack_launches"), "K8": (engine, "hist_launches"),
-            "K9": (engine, "slice_launches")}
+zero_counts, read_counts = launch_counters()
 out_path = sys.argv[1]
 sys.argv = ["mythril_tpu_torch"] + sys.argv[2:]
 profile = {"counts": {}, "rounds": 0, "wall_s": 0.0}
@@ -1408,37 +1421,31 @@ InstructionProfiler.record_device_round = record_device_round
 exit_check = cli._hard_exit_if_compiling
 def dump_then_exit_check(code):
     with open(out_path, "w") as fh:
-        json.dump({"launches": {k: getattr(m, a) for k, (m, a) in counters.items()}, "profile": profile}, fh)
+        json.dump({"launches": read_counts(), "profile": profile}, fh)
     exit_check(code)
 cli._hard_exit_if_compiling = dump_then_exit_check
-for mod, attr in counters.values():
-    setattr(mod, attr, 0)
+zero_counts()
 runpy.run_module("mythril_tpu_torch", run_name="__main__", alter_sys=True)
 """
 
 
-def run_stats_and_sync(dev, cfg, smi, cli_budget=60, sync_budget=("bectoken", 3, 120), hist_steps=64,
-                       slice_steps=512, rounds=16, steps_per_round=256):
-    """Phases 9-11: K8 and K9 against their twins, the CLI with
-    --enable-iprof in a subprocess, the sync slice loop end to end, and
-    the times of K8 and K9. Returns the kernels line's entries for K8
-    and K9."""
-    import tempfile
+def phase9(dev, cfg, hist_steps=64, slice_steps=512, rounds=16, steps_per_round=256):
+    """Phase 9: K8, K9 and K1's stats instance against their twins, and
+    the one-launch loops (a sync slice, a fused round with stats) against
+    the twins' loops. Returns a namespace: ``max_err`` (K8's and K9's own
+    compares only), ``k1_err`` (K1's planes and histogram in the stats,
+    slice and fused compares), the inputs that K8's and K9's timing
+    reuses, and the slice's and super-round's walls."""
+    from types import SimpleNamespace
 
     import numpy as np
     import torch
 
-    from mythril_tpu_torch.analysis.security import fire_lasers
-    from mythril_tpu_torch.analysis.symbolic import SymExecWrapper
     from mythril_tpu_torch.disassembler.asm import assemble
-    from mythril_tpu_torch.ethereum.evmcontract import EVMContract
-    from mythril_tpu_torch.laser.cuda import (
-        backend, batch, engine, inloop_solve, keccak, megakernel, solver, transfer,
-    )
-    from mythril_tpu_torch.obs import catalog as cat
-    from mythril_tpu_torch.robustness import retry
+    from mythril_tpu_torch.laser.cuda import batch, engine, inloop_solve, kernels, megakernel
 
     on_card = dev.type == "cuda"
+    zero_counts, read_counts = launch_counters()
 
     def sync():
         if on_card:
@@ -1457,6 +1464,7 @@ def run_stats_and_sync(dev, cfg, smi, cli_budget=60, sync_budget=("bectoken", 3,
         return 0, None
 
     max_err = {"K8": 0, "K9": 0}
+    k1_err = 0
     rng = np.random.default_rng(20261018)
     sym = dict(symbolic_calldata=True, symbolic_storage=True, symbolic_caller=True, symbolic_callvalue=True)
 
@@ -1476,10 +1484,10 @@ def run_stats_and_sync(dev, cfg, smi, cli_budget=60, sync_budget=("bectoken", 3,
         return batch.make_code_bank([code], cfg.code_len, host_ops=ALWAYS_HOST, freeze_errors=True,
                                     record_storage_events=True, prune_revert=True, device=dev)
 
-    # ---- 9. K8 and K9 against their twins ---------------------------------
+    # ---- 9. K8 and K9 against their twins, and K1's stats instance ----------
     cb_t = bank_for(contracts["bectoken"])
     n_cmp = min(32, cfg.lanes // 8)
-    st_k = st_t = batch.build_batch(cfg, seeds(n_cmp, n_cmp), device=dev)
+    st0 = st_k = st_t = batch.build_batch(cfg, seeds(n_cmp, n_cmp), device=dev)
     hist_k = torch.zeros(256, dtype=torch.int32, device=dev)
     hist_t = hist_k.clone()
     stale = 0
@@ -1499,7 +1507,45 @@ def run_stats_and_sync(dev, cfg, smi, cli_budget=60, sync_budget=("bectoken", 3,
           "retired": int(hist_k.to(torch.int64).sum()), "stale_lane_children": stale, "ok": True})
     if stale <= 0:
         raise AssertionError("no fork child counted its stale lane's opcode: the quirk went unexercised")
-    k8_state = (cb_t, prev_k, st_k)  # K8's timing input: the last of the 64 steps
+
+    # K1's stats instance: the same 64 steps in one launch, its histogram
+    # seeded near 2^32 so that bins wrap, against the twin's steps and K8
+    # twin; on the lanes' own grid, one block (several lanes a thread) and
+    # 8 blocks; then a launch the loop's control word stops
+    seed_h = torch.full((256,), -3, dtype=torch.int32, device=dev)  # 2^32 - 3 in every bin
+    want_h = seed_h.clone()
+    s_t = st0
+    for _ in range(hist_steps):
+        n_t = engine.step_plain(cb_t, s_t)
+        want_h = engine.op_hist_update_plain(cb_t, s_t, n_t, want_h)
+        s_t = n_t
+    wrapped = int(((want_h.to(torch.int64) & engine.M32) < (seed_h.to(torch.int64) & engine.M32)).sum())
+    k1_stats = {}
+    for blocks in ((0, 1, 8) if on_card else (0,)):
+        s = batch.StateBatch(*(x.clone() for x in st0))
+        h = seed_h.clone()
+        if on_card:
+            kernels.launch_step_run(kernels.StepArgs(cb_t, s), hist_steps, blocks=blocks, hist=h)
+        else:
+            s = engine.step_n(cb_t, None, s, hist_steps, device=dev, hist=h)
+        err, where = batch_diff(s, s_t)
+        err_h = diff(h, want_h)
+        k1_err = max(k1_err, err, err_h)
+        k1_stats[f"blocks_{blocks or 'auto'}"] = {"plane_err": err, "hist_err": err_h}
+        if err or err_h:
+            raise AssertionError(f"K1's stats instance (blocks={blocks}) differs from the twin: {where}, "
+                                 f"hist err {err_h}")
+    s = batch.StateBatch(*(x.clone() for x in st0))
+    h = seed_h.clone()
+    engine.step_n(cb_t, None, s, hist_steps, device=dev, ctl=torch.tensor([3, 0, 0, 0], dtype=torch.int32,
+                                                                          device=dev), inplace=True, hist=h)
+    stopped_ok = diff(h, seed_h) == 0 and batch_diff(s, st0)[0] == 0
+    emit({"phase": "compare", "kernel": "K1 with stats", "contract": "bectoken", "steps": hist_steps,
+          "lanes": cfg.lanes, "grids": k1_stats, "bins_wrapped": wrapped, "stopped_launch_adds_nothing": stopped_ok,
+          "ok": bool(stopped_ok and wrapped > 0)})
+    if not stopped_ok or wrapped <= 0:
+        raise AssertionError(f"K1's stats instance: a stopped launch changed something ({not stopped_ok}) "
+                             f"or no bin wrapped ({wrapped})")
 
     n_seeds = min(16, cfg.lanes // 4)
     slice_in = {}
@@ -1508,56 +1554,134 @@ def run_stats_and_sync(dev, cfg, smi, cli_budget=60, sync_budget=("bectoken", 3,
         slice_in[name] = (bank_for(code), batch.build_batch(cfg, specs, device=dev))
     cb_s, st_s = slice_in["bectoken"]
     out_t, ht = engine.run_plain(cb_s, st_s, slice_steps, True)
-    walls = {}
+    walls, slice_counts = {}, {}
     for with_stats in (True, False):
+        label = "stats" if with_stats else "plain"
         sync()
+        zero_counts()
         t0 = time.perf_counter()
         if with_stats:
             out_k, hk = engine.run_with_stats(cb_s, None, st_s, max_steps=slice_steps, device=dev)
-            err_h = diff(hk, ht)
         else:
-            out_k, err_h = engine.run(cb_s, None, st_s, max_steps=slice_steps, device=dev), 0
+            out_k = engine.run(cb_s, None, st_s, max_steps=slice_steps, device=dev)
         t_enq = time.perf_counter()
         sync()
-        walls["stats" if with_stats else "plain"] = {"wall_ms": round((time.perf_counter() - t0) * 1e3, 3),
-                                                     "enqueue_ms": round((t_enq - t0) * 1e3, 3)}
+        walls[label] = {"wall_ms": round((time.perf_counter() - t0) * 1e3, 3),
+                        "enqueue_ms": round((t_enq - t0) * 1e3, 3)}
+        slice_counts[label] = read_counts()
+        err_h = diff(hk, ht) if with_stats else 0
         err, where = batch_diff(out_k, out_t)
-        max_err["K8"] = max(max_err["K8"], err_h)
-        max_err["K9"] = max(max_err["K9"], err)
+        k1_err = max(k1_err, err, err_h)
         if err or err_h:
             raise AssertionError(f"the slice loop differs from the twin (stats={with_stats}): {where}, "
                                  f"hist err {err_h}")
-    quiet_k = engine.any_running(out_k, device=dev)
-    quiet_t = bool((out_t.alive & (out_t.status == batch.RUNNING)).any())
-    if quiet_k != quiet_t:
-        raise AssertionError("the K9 quiescence read differs from the twin")
-    emit({"phase": "compare", "kernel": "K9 + slice loop", "contract": "bectoken", "max_steps": slice_steps,
-          "lanes": cfg.lanes, "steps_max": int(out_t.steps.max()), "alive": int(out_t.alive.sum()),
-          "any_running_after": quiet_t, "retired": int(ht.to(torch.int64).sum()), "slice": walls, "ok": True})
+        c = slice_counts[label]
+        if on_card and (c["K1"] != 1 or c["K1_stats"] != int(with_stats) or c["K8"] or c["K9"]):
+            raise AssertionError(f"a slice (stats={with_stats}) did not run as one K1 launch: {c}")
+    emit({"phase": "compare", "kernel": "slice loop (one K1 launch)", "contract": "bectoken",
+          "max_steps": slice_steps, "lanes": cfg.lanes, "steps_max": int(out_t.steps.max()),
+          "alive": int(out_t.alive.sum()), "retired": int(ht.to(torch.int64).sum()), "slice": walls,
+          "launches": slice_counts, "ok": True})
 
-    cb_f, st_f = slice_in["becstress"]
+    # K9, the backend's quiescence read, against its twin: the whole control
+    # word from a fresh, a running, a stopped and a spent word, with
+    # max_steps 0, below t, at the spent word's t and above, on the slice's
+    # input and output, a batch with no lane alive, one whose lanes are all
+    # alive and none RUNNING, and one whose last lane alone runs; and
+    # engine.any_running (one K9 and a fetch) on each against the twin
+    last_lane = torch.arange(cfg.lanes, device=dev) == cfg.lanes - 1
+    stopped = torch.full_like(st_s.status, batch.STOPPED)
+    k9_batches = {
+        "slice_in": st_s, "slice_out": out_k,
+        "none_alive": st_s._replace(alive=torch.zeros_like(st_s.alive)),
+        "none_running": st_s._replace(alive=torch.ones_like(st_s.alive), status=stopped),
+        "last_lane_running": st_s._replace(alive=last_lane.to(st_s.alive.dtype),
+                                           status=torch.where(last_lane, batch.RUNNING, stopped)),
+    }
+    words = ([0, 0, 0, 7], [5, 1, 1, 7], [5, 0, 1, 7], [512, 1, 0, 7])
+    limits = (0, 3, 512, 4096)
+    k9 = {}
+    for label, s in k9_batches.items():
+        errs = []
+        for word in words:
+            for max_steps in limits:
+                ck = torch.tensor(word, dtype=torch.int32, device=dev)
+                ct = ck.clone()
+                engine.slice_ctl(s, ck, max_steps, device=dev)
+                engine.slice_ctl_plain(s, ct, max_steps)
+                errs.append(diff(ck, ct))
+        running_t = bool((s.alive & (s.status == batch.RUNNING)).any())
+        running_k = engine.any_running(s, device=dev)
+        max_err["K9"] = max(max_err["K9"], *errs)
+        k9[label] = {"running": running_t, "ctl_err": max(errs), "any_running_agrees": running_k == running_t}
+        if max(errs) or running_k != running_t:
+            raise AssertionError(f"K9 differs from the twin on {label}: {k9[label]}")
+    if {v["running"] for v in k9.values()} != {True, False}:
+        raise AssertionError(f"K9's batches were not both running and quiescent: {k9}")
+    emit({"phase": "compare", "kernel": "K9", "lanes": cfg.lanes, "words": words, "max_steps": limits,
+          "batches": k9, "ok": True})
+
     pool0 = inloop_solve.empty_pool(dev)
     fused_walls = {}
-    for with_stats in (False, True):
-        sync()
-        t0 = time.perf_counter()
-        fo = megakernel.run_fused(cb_f, None, st_f, max_rounds=rounds, steps_per_round=steps_per_round,
-                                  with_stats=with_stats, with_solve=True, pool=pool0, device=dev)
-        t_enq = time.perf_counter()
-        info = megakernel.decode_info(fo.info)
-        fused_walls["stats_on" if with_stats else "stats_off"] = {
-            "wall_ms": round((time.perf_counter() - t0) * 1e3, 3), "enqueue_ms": round((t_enq - t0) * 1e3, 3),
-            "rounds": info.rounds}
-    ft = megakernel.run_fused_plain(cb_f, st_f, rounds, steps_per_round, True, pool0, with_stats=True)
-    err, where = batch_diff(fo.st, ft.st)
-    err_h = diff(fo.hist, ft.hist)
-    max_err["K8"] = max(max_err["K8"], err_h)
-    ok = not err and not err_h and torch.equal(fo.info, ft.info) and torch.equal(fo.pruned_visited,
-                                                                                 ft.pruned_visited)
-    emit({"phase": "compare", "kernel": "K8 in run_fused", "contract": "becstress", "info": ft.info.tolist(),
-          "retired": int(ft.hist.to(torch.int64).sum()), "super_round": fused_walls, "gpu": smi, "ok": bool(ok)})
-    if not ok:
-        raise AssertionError(f"run_fused(with_stats=True) differs from the twin: {where}, hist err {err_h}")
+    for name in ("becstress", "bectoken"):
+        cb_f, st_f = slice_in[name]
+        fused_walls[name] = {}
+        for with_stats in (False, True):
+            sync()
+            zero_counts()
+            t0 = time.perf_counter()
+            fo = megakernel.run_fused(cb_f, None, st_f, max_rounds=rounds, steps_per_round=steps_per_round,
+                                      with_stats=with_stats, with_solve=True, pool=pool0, device=dev)
+            t_enq = time.perf_counter()
+            info = megakernel.decode_info(fo.info)
+            c = read_counts()
+            fused_walls[name]["stats_on" if with_stats else "stats_off"] = {
+                "wall_ms": round((time.perf_counter() - t0) * 1e3, 3), "enqueue_ms": round((t_enq - t0) * 1e3, 3),
+                "rounds": info.rounds, "launches": {k: c[k] for k in ("K1", "K1_stats", "K8", "K3", "K4")}}
+            if on_card and (c["K1"] != rounds or c["K1_stats"] != (rounds if with_stats else 0) or c["K8"]):
+                raise AssertionError(f"{name}: run_fused(with_stats={with_stats}) did not run one K1 launch a "
+                                     f"round: {c}")
+        ft = megakernel.run_fused_plain(cb_f, st_f, rounds, steps_per_round, True, pool0, with_stats=True)
+        err, where = batch_diff(fo.st, ft.st)
+        err_h = diff(fo.hist, ft.hist)
+        k1_err = max(k1_err, err, err_h)
+        ok = not err and not err_h and torch.equal(fo.info, ft.info) and torch.equal(fo.pruned_visited,
+                                                                                     ft.pruned_visited)
+        emit({"phase": "compare", "kernel": "run_fused with stats", "contract": name, "info": ft.info.tolist(),
+              "retired": int(ft.hist.to(torch.int64).sum()), "super_round": fused_walls[name], "ok": bool(ok)})
+        if not ok:
+            raise AssertionError(f"{name}: run_fused(with_stats=True) differs from the twin: {where}, "
+                                 f"hist err {err_h}")
+    return SimpleNamespace(max_err=max_err, k1_err=k1_err, contracts=contracts, k8_state=(cb_t, prev_k, st_k),
+                           slice_state=st_s, walls=walls, fused_walls=fused_walls)
+
+
+def run_stats_and_sync(dev, cfg, smi, cli_budget=60, sync_budget=("bectoken", 3, 120), slice_steps=512):
+    """Phases 9-11: phase9(), the CLI with --enable-iprof in a subprocess,
+    the sync slice loop end to end, and the times of K8 and K9. Returns
+    the kernels line's entries for K8 and K9, and K1's largest plane or
+    histogram error in phase 9's compares."""
+    import tempfile
+
+    import torch
+
+    from mythril_tpu_torch.analysis.security import fire_lasers
+    from mythril_tpu_torch.analysis.symbolic import SymExecWrapper
+    from mythril_tpu_torch.disassembler.asm import assemble
+    from mythril_tpu_torch.ethereum.evmcontract import EVMContract
+    from mythril_tpu_torch.laser.cuda import backend, engine, kernels
+    from mythril_tpu_torch.obs import catalog as cat
+    from mythril_tpu_torch.robustness import retry
+
+    on_card = dev.type == "cuda"
+
+    def sync():
+        if on_card:
+            torch.cuda.synchronize()
+
+    p9 = phase9(dev, cfg, slice_steps=slice_steps)
+    max_err, contracts = p9.max_err, p9.contracts
+    zero_counts, read_counts = launch_counters()
 
     # ---- 10. the CLI with --enable-iprof, a subprocess ---------------------
     runtime = contracts["becstress"]
@@ -1592,15 +1716,13 @@ def run_stats_and_sync(dev, cfg, smi, cli_budget=60, sync_budget=("bectoken", 3,
         raise AssertionError(f"CLI: issues {cli_issues}, expected {EXPECTED_ISSUES['becstress']}")
     if not profile["counts"] or "Device rounds:" not in proc.stderr:
         raise AssertionError("the CLI reported no device opcode profile")
-    missing = [k for k, v in cli_launches.items() if v <= 0 and k not in ("K2", "K5")]
-    if on_card and missing:
-        raise AssertionError(f"kernels the CLI path never launched: {missing}")
+    # K1's stats instance folds the histogram: no K8 launch; K9 is only
+    # the sync tier's quiescence read between slices
+    missing = [k for k in ("K1", "K1_steps", "K1_stats", "K3", "K4", "K6", "K7") if cli_launches[k] <= 0]
+    if on_card and (missing or cli_launches["K8"]):
+        raise AssertionError(f"kernels the CLI path never launched: {missing}, or K8 launched: {cli_launches}")
 
     # ---- 11. the sync slice loop end to end ----------------------------------
-    counters = {"K1": (engine, "launches"), "K1_steps": (engine, "steps_run"), "K2": (keccak, "launches"),
-                "K3": (inloop_solve, "launches"), "K4": (megakernel, "launches"), "K5": (solver, "launches"),
-                "K6": (transfer, "unpack_launches"), "K7": (transfer, "pack_launches"),
-                "K8": (engine, "hist_launches"), "K9": (engine, "slice_launches")}
     name, tx, budget = sync_budget
     runtime = contracts[name]
     n = len(runtime)
@@ -1614,8 +1736,7 @@ def run_stats_and_sync(dev, cfg, smi, cli_budget=60, sync_budget=("bectoken", 3,
         degraded0 = cat.DEGRADED_ROUNDS_TOTAL.value()
         slices0 = cat.DEVICE_SLICES_TOTAL.value()
         sync()
-        for mod, attr in counters.values():
-            setattr(mod, attr, 0)
+        zero_counts()
         t1 = time.time()
         handoff = HandoffProbe()
         handoff.start()
@@ -1628,7 +1749,7 @@ def run_stats_and_sync(dev, cfg, smi, cli_budget=60, sync_budget=("bectoken", 3,
             handoff.stop()
         sync()
         wall = time.time() - t1
-        sync_launches = {k: getattr(m, a) for k, (m, a) in counters.items()}
+        sync_launches = read_counts()
     finally:
         if fused_env is None:
             os.environ.pop("MYTHRIL_TPU_FUSED", None)
@@ -1673,42 +1794,57 @@ def run_stats_and_sync(dev, cfg, smi, cli_budget=60, sync_budget=("bectoken", 3,
         fn()
         return (time.perf_counter() - t) * 1e3
 
-    # the kernels as the loops launch them: with their launch arguments built once
-    from mythril_tpu_torch.laser.cuda import kernels
-
-    cb8, prev8, after8 = k8_state
-    before8 = engine.snapshot(prev8)
+    # through their engine entry points, as every other row is timed; and
+    # the launch alone, its arguments built once (launch_ms)
+    cb8, before8, after8 = p9.k8_state
     h8 = torch.zeros(256, dtype=torch.int32, device=dev)
-    a8 = kernels.HistArgs(cb8, before8, after8, h8) if on_card else None
-    ms8 = time_ms(lambda: engine.op_hist_update(cb8, before8, after8, h8, device=dev, args=a8))
+    ms8 = time_ms(lambda: engine.op_hist_update(cb8, before8, after8, h8, device=dev))
+    launch8 = None
+    if on_card:
+        a8 = kernels.HistArgs(cb8, before8, after8, h8)
+        launch8 = time_ms(lambda: kernels.launch_op_hist(a8))
     plain8 = time_ms(lambda: engine.op_hist_update_plain(cb8, before8, after8, h8), reps=10)
     L = cfg.lanes
     counted = int((after8.steps > before8.steps).sum())
     bytes8 = L * (3 * 4 + 4) + counted + 2 * 256 * 4
+    st_s = p9.slice_state
     ctl9 = torch.zeros(4, dtype=torch.int32, device=dev)
-    a9 = kernels.SliceArgs(st_s, ctl9, slice_steps) if on_card else None
-    ms9 = time_ms(lambda: engine.slice_ctl(st_s, ctl9, slice_steps, device=dev, args=a9))
+    ms9 = time_ms(lambda: engine.slice_ctl(st_s, ctl9, slice_steps, device=dev))
+    launch9 = None
+    if on_card:
+        a9 = kernels.SliceArgs(st_s, ctl9, slice_steps)
+        launch9 = time_ms(lambda: kernels.launch_slice_ctl(a9))
     plain9 = time_ms(lambda: engine.slice_ctl_plain(st_s, ctl9, slice_steps), reps=10)
     bytes9 = L * (1 + 4) + 2 * 4 * 4
     emit({"phase": "timing_stats_and_sync", "gpu": smi, "K8": {"lanes": L, "counted_lanes": counted},
-          "K9": {"lanes": L}, "slice_512": walls, "super_round": fused_walls})
+          "K9": {"lanes": L}, "slice_512": p9.walls, "super_round": p9.fused_walls,
+          "K1_stats_instance": kernels.step_run_info(dev, stats=True) if on_card else None})
 
-    def entry(kid, name, source, replaces, launches, ms, plain, nbytes, by_path):
+    def entry(kid, name, source, replaces, launches, ms, launch_ms, plain, nbytes, by_path):
         return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
                 "launches": launches, "launches_by_path": by_path, "max_abs_err": max_err[kid],
-                "ms": round(ms, 6), "plain_ms": round(plain, 6),
+                "ms": round(ms, 6), "launch_ms": None if launch_ms is None else round(launch_ms, 6),
+                "plain_ms": round(plain, 6),
                 "bound_ms": round(nbytes / HBM_BYTES_PER_S * 1e3, 9), "bound_by": "bytes", "library_ms": None}
 
+    # K1's stats instance took K8's place on the loops, and one K1 launch
+    # a slice K9's: beside each path's K8 and K9 launches, its K1 launches
+    # with stats and in all
     by_path8 = {"e2e_cli": cli_launches["K8"], "e2e_sync": sync_launches["K8"]}
     by_path9 = {"e2e_cli": cli_launches["K9"], "e2e_sync": sync_launches["K9"]}
-    if on_card and (cli_launches["K8"] <= 0 or sync_launches["K9"] <= 0):
-        raise AssertionError(f"K8/K9 never launched on their paths: {by_path8} {by_path9}")
+    k1_by_path = {"e2e_cli": {"K1": cli_launches["K1"], "K1_stats": cli_launches["K1_stats"]},
+                  "e2e_sync": {"K1": sync_launches["K1"], "K1_stats": sync_launches["K1_stats"]}}
+    if on_card and (cli_launches["K1_stats"] <= 0 or cli_launches["K8"] or sync_launches["K9"] <= 0):
+        raise AssertionError(f"K1's stats instance never launched on the CLI path, K8 did, or the sync path "
+                             f"read no quiescence: {by_path8} {by_path9} {k1_by_path}")
     return [
-        entry("K8", "K8 op_hist_update", "mythril_tpu_torch/csrc/hist.cu",
-              "mythril_tpu/laser/tpu/engine.py:1398", cli_launches["K8"], ms8, plain8, bytes8, by_path8),
-        entry("K9", "K9 slice_ctl", "mythril_tpu_torch/csrc/slice.cu",
-              "mythril_tpu/laser/tpu/engine.py:1415", sync_launches["K9"], ms9, plain9, bytes9, by_path9),
-    ]
+        dict(entry("K8", "K8 op_hist_update", "mythril_tpu_torch/csrc/hist.cu",
+                   "mythril_tpu/laser/tpu/engine.py:1398", cli_launches["K8"], ms8, launch8, plain8, bytes8, by_path8),
+             k1_launches_by_path=k1_by_path),
+        dict(entry("K9", "K9 slice_ctl", "mythril_tpu_torch/csrc/slice.cu",
+                   "mythril_tpu/laser/tpu/engine.py:1415", sync_launches["K9"], ms9, launch9, plain9, bytes9, by_path9),
+             k1_launches_by_path=k1_by_path),
+    ], p9.k1_err
 
 
 LOOP_SRC = "here:\nJUMPDEST\nPUSH1 :here\nJUMP"
@@ -1750,7 +1886,7 @@ def run_mesh(dev, cfg, smi, rounds=4, steps_per_round=256, n_shards=8, e2e=("bec
     def clone(st):
         return batch.StateBatch(*(x.clone() for x in st))
 
-    zero_counts, read_counts = mesh_counters()
+    zero_counts, read_counts = launch_counters()
     max_err = {"K1": 0, "K4": 0, "K10": 0, "K11": 0, "K12": 0}
     rng = np.random.default_rng(20261019)
     sym = dict(symbolic_calldata=True, symbolic_storage=True, symbolic_caller=True, symbolic_callvalue=True)
@@ -1883,8 +2019,9 @@ def run_mesh(dev, cfg, smi, rounds=4, steps_per_round=256, n_shards=8, e2e=("bec
                                  f"info {out.info.tolist()} vs {ot.info.tolist()}")
         if on_card and min(counts[k] for k in ("K1", "K3", "K4", "K10", "K11")) <= 0:
             raise AssertionError(f"{name}: a kernel of the fused mesh loop never launched: {counts}")
-        if on_card and not with_stats and (counts["K1"] != rounds or counts["K2"]
-                                           or counts["K1_steps"] != rounds * steps_per_round):
+        if on_card and (counts["K1"] != rounds or counts["K2"] or counts["K8"]
+                        or counts["K1_steps"] != rounds * steps_per_round
+                        or counts["K1_stats"] != (rounds if with_stats else 0)):
             raise AssertionError(f"{name}: the fused mesh loop did not run one K1 launch per round: {counts}")
     fused_mesh_counts = {k: sum(r[3][k] for r in results.values()) for k in read_counts()}
 
@@ -1904,8 +2041,10 @@ def run_mesh(dev, cfg, smi, rounds=4, steps_per_round=256, n_shards=8, e2e=("bec
           "launches": sync_counts, "ok": not err})
     if err:
         raise AssertionError(f"sharded_round differs from the twin: {where}")
-    if on_card and min(sync_counts[k] for k in ("K1", "K9", "K10", "K12")) <= 0:
-        raise AssertionError(f"a kernel of the sync mesh round never launched: {sync_counts}")
+    # the round's slice is one K1 launch (no K9), then the deal and the occupancy
+    if on_card and (min(sync_counts[k] for k in ("K1", "K10", "K12")) <= 0 or sync_counts["K1"] != 1
+                    or sync_counts["K9"]):
+        raise AssertionError(f"the sync mesh round did not launch one K1, K10 and K12: {sync_counts}")
 
     # ---- 12d. the skew demos ------------------------------------------------
     loop_code = assemble(LOOP_SRC)
@@ -2057,13 +2196,14 @@ def run_mesh(dev, cfg, smi, rounds=4, steps_per_round=256, n_shards=8, e2e=("bec
               "mythril_tpu/laser/tpu/mesh.py:83", sync_counts["K12"], ms12, plain12, bytes12, by12),
     ], {"K1": max_err["K1"], "K4": max_err["K4"]}
 
-def mesh_counters():
-    """(zero_counts, read_counts) over the launch counts of K1-K12."""
+def launch_counters():
+    """(zero_counts, read_counts) over the launch counts of K1-K12 (and of
+    K1's steps and stats instance)."""
     from mythril_tpu_torch.laser.cuda import engine, inloop_solve, keccak, megakernel, mesh, solver, transfer
 
-    counters = {"K1": (engine, "launches"), "K1_steps": (engine, "steps_run"), "K2": (keccak, "launches"),
-                "K3": (inloop_solve, "launches"), "K4": (megakernel, "launches"), "K5": (solver, "launches"),
-                "K6": (transfer, "unpack_launches"), "K7": (transfer, "pack_launches"),
+    counters = {"K1": (engine, "launches"), "K1_steps": (engine, "steps_run"), "K1_stats": (engine, "stats_launches"),
+                "K2": (keccak, "launches"), "K3": (inloop_solve, "launches"), "K4": (megakernel, "launches"),
+                "K5": (solver, "launches"), "K6": (transfer, "unpack_launches"), "K7": (transfer, "pack_launches"),
                 "K8": (engine, "hist_launches"), "K9": (engine, "slice_launches"),
                 "K10": (mesh, "plan_launches"), "K11": (mesh, "steal_launches"), "K12": (mesh, "deal_launches")}
 
@@ -2103,7 +2243,7 @@ def run_mesh_e2e(dev, cfg, smi, n=8, e2e=("bectoken", 3, 120)):
     from mythril_tpu_torch.robustness import retry
 
     on_card = dev.type == "cuda"
-    zero_counts, read_counts = mesh_counters()
+    zero_counts, read_counts = launch_counters()
 
     def sync():
         if on_card:

@@ -28,11 +28,11 @@ both checkouts, on a machine with the card, e.g.
     python3 mythril_tpu_torch/ab_transfer.py parent_checkout . --order ABBA
 """
 
-import argparse
-import json
 import os
-import subprocess
 import sys
+
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+from mythril_tpu_torch.ab import ab_main  # noqa: E402  (the script runs from its own directory)
 
 RUN_ONE = r'''
 import json, os, subprocess, sys, time
@@ -157,32 +157,13 @@ print(json.dumps({"gpu": smi, "build_s": round(build_s, 3), "t_used": t_used, "l
 
 
 def main(argv=None) -> int:
-    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("a", help="checkout A (e.g. the parent)")
-    ap.add_argument("b", help="checkout B")
-    ap.add_argument("--order", default="ABBA")
-    ap.add_argument("--live", type=int, default=24, help="lanes with content")
-    ap.add_argument("--tape-len", type=int, default=20, help="used term-tape columns")
-    ap.add_argument("--seed", type=int, default=7)
-    ap.add_argument("--reps", type=int, default=20)
-    args = ap.parse_args(argv)
-    trees = {"A": args.a, "B": args.b}
-    ok = True
-    for i, key in enumerate(args.order):
-        proc = subprocess.run(
-            [sys.executable, "-c", RUN_ONE, str(args.live), str(args.tape_len), str(args.seed), str(args.reps)],
-            cwd=os.path.abspath(trees[key]), capture_output=True, text=True,
-        )
-        lines = proc.stdout.strip().splitlines()
-        if proc.returncode != 0 or not lines:
-            print(json.dumps({"run": i, "tree": key, "rc": proc.returncode, "stderr": proc.stderr[-4000:]}),
-                  flush=True)
-            ok = False
-            continue
-        out = json.loads(lines[-1])
-        ok = ok and out["ok"]
-        print(json.dumps({"run": i, "tree": key, "path": trees[key], **out}), flush=True)
-    return 0 if ok else 1
+    def options(ap):
+        ap.add_argument("--live", type=int, default=24, help="lanes with content")
+        ap.add_argument("--tape-len", type=int, default=20, help="used term-tape columns")
+        ap.add_argument("--seed", type=int, default=7)
+        ap.add_argument("--reps", type=int, default=20)
+
+    return ab_main(__doc__, RUN_ONE, lambda a: (a.live, a.tape_len, a.seed, a.reps), options, argv)
 
 
 if __name__ == "__main__":

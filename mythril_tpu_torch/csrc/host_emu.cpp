@@ -59,31 +59,56 @@ int emu_fork_rank(int L, int n_shards, const uint8_t* flags, int nthreads, int32
 }
 
 // K1 (step.cu): n_steps steps as one launch runs them, with blocks of
-// nthreads threads. The lane pass visits the lanes in ``order`` (null:
-// 0..L-1), one warp a lane: a lane steps and its fork is copied before
-// the next lane steps.
+// nthreads threads. Part (a) and the lane pass visit the lanes in
+// ``order`` (null: 0..L-1), the lane pass one warp a lane: a lane steps
+// and its fork is copied before the next lane steps. With ``hist`` (and
+// ``rec``, int32[2L]) every step's retired opcodes are folded as the
+// kernel's stats instance folds them: each lane's previous record
+// compared and its new one taken in part (a), the last step's fold after
+// the loop, the bins added into ``hist`` on every exit.
 int emu_step_run(const Planes* Pp, const Bank* Bp, const int32_t* tab, uint8_t* flags,
-                 const int32_t* ctl, int n_shards, int n_steps, int nthreads, const int32_t* order) {
+                 const int32_t* ctl, uint32_t* hist, int32_t* rec, int n_shards, int n_steps, int nthreads,
+                 const int32_t* order) {
   const Planes& P = *Pp;
   const Bank& B = *Bp;
   const int L = P.L;
-  if (!emu_rank_ok(L, n_shards, nthreads)) return 2;
+  if (!emu_rank_ok(L, n_shards, nthreads) || (hist && !rec)) return 2;
   if (ctl && !ctl[1]) return 0;
-  std::vector<StepShared> ss(1);
+  std::vector<StepSharedHist> ss(1);
+  StepSharedHist& sh = ss[0];
+  for (int i = 0; i < HIST_BINS; ++i) sh.bins[i] = 0;
+  auto flush = [&]() {
+    if (hist)
+      for (int i = 0; i < HIST_BINS; ++i)
+        if (sh.bins[i]) hist[i] += sh.bins[i];
+  };
   const int per = L / n_shards;
   for (int step = 0; step < n_steps; ++step) {
-    for (int l = 0; l < L; ++l) flags[l] = lane_flags(P, B, tab, l);
-    emu_rank_block(L, flags, ss[0], nthreads);
-    if (!rank_any_running(ss[0].rs, L)) return 0;
+    for (int i = 0; i < L; ++i) {
+      const int l = order ? order[i] : i;
+      if (hist) {
+        if (step) hist_fold(P, rec, sh.bins, l);
+        hist_record(P, B.code, rec, l);
+      }
+      flags[l] = lane_flags(P, B, tab, l);
+    }
+    emu_rank_block(L, flags, sh, nthreads);
+    if (!rank_any_running(sh.rs, L)) {
+      flush();
+      return 0;
+    }
     for (int i = 0; i < L; ++i) {
       const int lane = order ? order[i] : i;
       int dest;
-      const int child = fork_slot(L, per, flags, ss[0], lane);
+      const int child = fork_slot(L, per, flags, sh, lane);
       if (!lane_pass(P, B, tab, flags, child, lane, &dest)) continue;
       copy_row_part(P, P, lane, child, 0, 1);
       fork_child_edits(P, child, dest);
     }
   }
+  if (hist && n_steps > 0)
+    for (int l = 0; l < L; ++l) hist_fold(P, rec, sh.bins, l);
+  flush();
   return 0;
 }
 
@@ -225,19 +250,12 @@ int emu_xfer(const XferSeg* table, int nseg, uint32_t total, int nblocks, int nt
   return 0;
 }
 
-// K8: every lane's bin, then the snapshot refresh
-int emu_op_hist(const uint8_t* code, int n_codes, int CL, int32_t* b_cid, int32_t* b_pc,
-                int32_t* b_steps, const int32_t* a_cid, const int32_t* a_pc, const int32_t* a_steps,
-                int L, uint32_t* hist, const int32_t* ctl, int refresh) {
-  if (ctl && !ctl[1]) return 0;
+// K8: every lane's bin
+int emu_op_hist(const uint8_t* code, int n_codes, int CL, const int32_t* b_cid, const int32_t* b_pc,
+                const int32_t* b_steps, const int32_t* a_steps, int L, uint32_t* hist) {
   for (int l = 0; l < L; ++l) {
     int b = hist_bin(code, n_codes, CL, b_cid[l], b_pc[l], b_steps[l], a_steps[l]);
     if (b < HIST_BINS) hist[b] += 1u;
-    if (refresh) {
-      b_cid[l] = a_cid[l];
-      b_pc[l] = a_pc[l];
-      b_steps[l] = a_steps[l];
-    }
   }
   return 0;
 }

@@ -1,10 +1,11 @@
-// K9: the sync slice loop's control (replaces the condition of
-// mythril_tpu/laser/tpu/engine.py:1415 _run_impl's while_loop; the body
-// is K1/K2 and, with stats, K8). engine.run queues max_steps x (K9, K1,
-// K2 [, K8]) launches with no host sync; one block reduces alive &
-// RUNNING over the L lanes and commits the control word. The backend's
-// quiescence read between slices is one K9 into a fresh word and one
-// fetch of it. Bound: bytes (5 B per lane read); launch-bound at L = 512.
+// K9: the sync slice loop's condition (replaces the cond of
+// mythril_tpu/laser/tpu/engine.py:1415 _run_impl's while_loop): one block
+// reduces alive & RUNNING over the L lanes and commits the control word.
+// The slice itself is one K1 launch of max_steps steps, which stops on
+// the same condition by itself (step.cu), so no loop launches K9 per
+// step; the backend's quiescence read between slices
+// (engine.any_running) is one K9 into a fresh word and one fetch of it.
+// Bound: bytes (5 B per lane read); launch-bound at L = 512.
 #include "slice.cuh"
 
 __global__ void slice_ctl_kernel(const uint8_t* alive, const int32_t* status, int L, int32_t* ctl,

@@ -1,8 +1,7 @@
 // K9's logic: the sync slice loop's condition (mythril_tpu/laser/tpu/
 // engine.py:1427 _run_impl cond: t < max_steps and any lane alive and
-// RUNNING), evaluated on the device before each step. The control word
-// is ctl = [t, continue, any_running, unused]; the step (K1, K2) and
-// the histogram (K8) read ctl[1] first and return at once when it is 0.
+// RUNNING). The control word is ctl = [t, continue, any_running, unused];
+// a kernel given it reads ctl[1] first and returns at once when it is 0.
 // Once the loop has stopped it stays stopped, as a while_loop does.
 #pragma once
 #include "common.cuh"

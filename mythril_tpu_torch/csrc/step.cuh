@@ -4,6 +4,7 @@
 // for every rule.
 #pragma once
 #include "common.cuh"
+#include "hist.cuh"
 #include "keccak.cuh"
 #include "scan.cuh"
 #include "symtape.cuh"
@@ -701,6 +702,11 @@ MT_DEV uint8_t lane_flags(const Planes& P, const Bank& B, const int32_t* tab, in
 struct StepShared {
   RankShared rs;
   int32_t free_at[RANK_MAX_LANES];
+};
+
+// ... and with stats, the block's retired-opcode bins (hist.cuh)
+struct StepSharedHist : StepShared {
+  uint32_t bins[HIST_BINS];
 };
 
 // part 4: free lanes by global free rank

@@ -25,16 +25,17 @@ the host path.
 The device is ``DEVICE`` ("cuda": the current CUDA device; the tests set
 "cpu", where every kernel wrapper runs its plain twin). The single-device
 tiers are ported: the fused super-round, and the synchronous slice loop
-(engine.run: K9 + K1/K2) that the reference takes when
-``MYTHRIL_TPU_FUSED=off`` or the breaker is half-open. Stats mode
-(``--enable-iprof``) adds K8's retired-opcode histogram to either tier.
+(engine.run: one K1 launch a slice, K9 for the quiescence read between
+slices) that the reference takes when ``MYTHRIL_TPU_FUSED=off`` or the
+breaker is half-open. Stats mode (``--enable-iprof``) adds the
+retired-opcode histogram to either tier, folded inside K1's launches.
 When ``mesh.n_devices`` (1 until the shards can span several cards,
 so production runs the single-device tiers; the tests patch it) is
 above 1 and ``_mesh_tier`` allows it, a round runs on the mesh tiers instead: the fused
 mesh super-round (megakernel.run_fused_mesh: forks, pruning and
 compaction per lane shard, work-stealing between rounds, K10/K11) or
-the sync mesh loop (mesh.sharded_round: K9 + K1/K2, the deal K12, the
-occupancy K10). A kernel failure (KernelError, or a CUDA fault torch
+the sync mesh loop (mesh.sharded_round: one K1 launch, the deal K12,
+the occupancy K10). A kernel failure (KernelError, or a CUDA fault torch
 reports after a launch) is never turned into a host round: every
 degrade handler re-raises it.
 """

@@ -41,8 +41,11 @@ barriers:
    pass.
 
 ``step`` is one launch of one step (one ctypes call); ``step_n`` one
-launch of ``n_steps``, which the fused loops issue once per round. K2 is
-not launched by the step: it stays for callers that hash rows alone.
+launch of ``n_steps``, which the fused loops issue once per round and the
+sync slice loop once per slice. Given ``hist``, the launch is K1's stats
+instance, which also folds every step's retired opcodes into it (see
+below). K2 is not launched by the step: it stays for callers that hash
+rows alone.
 
 Bound on the H100: bytes. A step reads each running lane's fetch,
 operands and the planes its opcode touches; the forced minimum is far
@@ -57,20 +60,20 @@ Stats mode and the sync slice loop (B8 and B10) live here too:
 - ``op_hist_update`` (K8, ``csrc/hist.cu``; the reference's
   engine.py:1398) adds one step's retired opcodes into a u32[256]
   histogram, held as int32 bits. A lane retired ``code[pc]`` iff its
-  step counter advanced. On the card the loops snapshot ``code_id``,
-  ``pc`` and ``steps`` once per slice or round, and each K8 launch
-  refreshes that snapshot for the next step, so stats cost one launch
-  per step and no host sync.
+  step counter advanced. It is the standalone counterpart of the
+  reference's function: on the card the loops do not launch it, since
+  K1's stats instance folds the same bins inside its launch after every
+  step (``step_n(..., hist=)``), each lane recorded from its own pre-step
+  row before any fork copies into it.
 - ``run`` and ``run_with_stats`` (the reference's ``_run_impl``,
   engine.py:1415) step the batch while ``t < max_steps`` and some lane
   is alive and RUNNING, the condition evaluated before each step. On
-  the card ``max_steps`` steps are queued with no host sync, each
-  behind K9 (``csrc/slice.cu``), which evaluates the condition into the
-  control word that K1 and K8 read first; ``any_running`` is the
-  caller's one quiescence read per slice.
+  the card that is one K1 launch of ``max_steps`` steps (with the
+  histogram for ``run_with_stats``): K1 leaves once no lane is alive and
+  RUNNING, which is that very condition. ``any_running`` is the caller's
+  one quiescence read per slice: K9 (``csrc/slice.cu``) into a fresh
+  control word, and one fetch of it.
 """
-
-from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -122,6 +125,7 @@ SENT = 1 << 28  # offset sentinel for operands that do not fit
 
 launches = 0  # K1 launches (CUDA path only)
 steps_run = 0  # the steps those launches were asked for (n_steps summed; a launch ends early once no lane runs)
+stats_launches = 0  # those of the K1 launches that also folded the retired-opcode histogram
 hist_launches = 0  # K8 launches (CUDA path only)
 slice_launches = 0  # K9 launches (CUDA path only)
 
@@ -927,7 +931,7 @@ def step_plain(cb: CodeBank, st: StateBatch, n_shards: int = 1) -> StateBatch:
 
 
 def step(cb: CodeBank, env, st: StateBatch, device="cuda", ctl=None, inplace=False, args=None,
-         n_shards: int = 1) -> StateBatch:
+         n_shards: int = 1, hist=None) -> StateBatch:
     """Advance every lane one instruction.
 
     On the CPU this is ``step_plain``. On the card it is one K1 launch
@@ -937,20 +941,31 @@ def step(cb: CodeBank, env, st: StateBatch, device="cuda", ctl=None, inplace=Fal
     ``args`` (kernels.StepArgs of this very batch, built with the same
     ``n_shards``) saves rebuilding the launch structs on every step of
     the loop. ``n_shards`` > 1 places forks per lane block (the fused
-    mesh tier, see ``step_plain``)."""
-    return step_n(cb, env, st, 1, device=device, ctl=ctl, inplace=inplace, args=args, n_shards=n_shards)
+    mesh tier, see ``step_plain``). ``hist`` (int32[256] of u32 bits), if
+    given, gets the step's retired opcodes added in place, as
+    ``op_hist_update`` would add them."""
+    return step_n(cb, env, st, 1, device=device, ctl=ctl, inplace=inplace, args=args, n_shards=n_shards,
+                  hist=hist)
 
 
 def step_n(cb: CodeBank, env, st: StateBatch, n_steps: int, device="cuda", ctl=None, inplace=False, args=None,
-           n_shards: int = 1) -> StateBatch:
+           n_shards: int = 1, hist=None) -> StateBatch:
     """Advance every lane ``n_steps`` instructions: ``step`` repeated, in
-    one K1 launch on the card (the fused loops' round). On the CPU it is
-    ``step_plain`` repeated while ``ctl`` (if given) says continue."""
+    one K1 launch on the card (the fused loops' round, the sync slice).
+    On the CPU it is ``step_plain`` repeated while ``ctl`` (if given) says
+    continue. With ``hist`` every step's retired opcodes are added into
+    it in place: ``op_hist_update_plain`` after each step on the CPU, K1's
+    stats instance on the card."""
     _build.check_on(device, st.pc, cb.code)
+    if hist is not None:
+        _build.check_on(device, hist)
     if st.pc.device.type == "cpu":
         if ctl is None or bool(ctl[1]):
             for _ in range(int(n_steps)):
-                st = step_plain(cb, st, n_shards)
+                nst = step_plain(cb, st, n_shards)
+                if hist is not None:
+                    hist.copy_(op_hist_update_plain(cb, st, nst, hist))
+                st = nst
         return st
     from mythril_tpu_torch.laser.cuda import kernels
 
@@ -961,26 +976,15 @@ def step_n(cb: CodeBank, env, st: StateBatch, n_steps: int, device="cuda", ctl=N
         args = kernels.StepArgs(cb, st, n_shards)
     elif args.n_shards != n_shards:
         raise _build.KernelError(f"StepArgs built for {args.n_shards} shards, step asked for {n_shards}")
-    global launches, steps_run
+    global launches, steps_run, stats_launches
     launches += 1
     steps_run += int(n_steps)
-    kernels.launch_step_run(args, n_steps, ctl)
+    stats_launches += int(hist is not None)
+    kernels.launch_step_run(args, n_steps, ctl, hist=hist)
     return st
 
 
 # -- stats mode (B8) and the sync slice loop (B10) ----------------------
-
-
-class Snapshot(NamedTuple):
-    """The pre-step planes K8 reads: a lane's code row, pc and steps."""
-
-    code_id: torch.Tensor
-    pc: torch.Tensor
-    steps: torch.Tensor
-
-
-def snapshot(st: StateBatch) -> Snapshot:
-    return Snapshot(st.code_id.clone(), st.pc.clone(), st.steps.clone())
 
 
 def op_hist_update_plain(cb: CodeBank, before, after, hist: torch.Tensor) -> torch.Tensor:
@@ -1001,15 +1005,13 @@ def op_hist_update_plain(cb: CodeBank, before, after, hist: torch.Tensor) -> tor
     return torch.where(out >= 1 << 31, out - (1 << 32), out).to(torch.int32)
 
 
-def op_hist_update(cb: CodeBank, before, after, hist, device="cuda", ctl=None, refresh=False, args=None):
+def op_hist_update(cb: CodeBank, before, after, hist, device="cuda"):
     """Fold one step into the retired-opcode histogram.
 
     On the CPU this is ``op_hist_update_plain``. On the card it launches
-    K8, which adds into ``hist`` in place and returns it; ``ctl`` is the
-    loop's control word (K8 returns at once once it says stop), and
-    ``refresh`` overwrites ``before`` (a ``Snapshot``) with ``after``'s
-    planes for the next step. ``args`` (kernels.HistArgs of these very
-    tensors) saves rebuilding the launch arguments on every step."""
+    K8, which adds into ``hist`` in place and returns it. The port's loops
+    do not call it: K1's stats instance folds the same bins inside its
+    launch (``step_n(..., hist=)``)."""
     _build.check_on(device, after.steps, before.steps, cb.code, hist)
     if after.steps.device.type == "cpu":
         return op_hist_update_plain(cb, before, after, hist)
@@ -1017,7 +1019,7 @@ def op_hist_update(cb: CodeBank, before, after, hist, device="cuda", ctl=None, r
 
     global hist_launches
     hist_launches += 1
-    kernels.launch_op_hist(args or kernels.HistArgs(cb, before, after, hist, ctl, refresh))
+    kernels.launch_op_hist(kernels.HistArgs(cb, before, after, hist))
     return hist
 
 
@@ -1036,10 +1038,8 @@ def slice_ctl_plain(st: StateBatch, ctl: torch.Tensor, max_steps: int) -> torch.
     return ctl
 
 
-def slice_ctl(st: StateBatch, ctl, max_steps: int, device="cuda", args=None) -> torch.Tensor:
-    """Evaluate the slice loop's condition into ``ctl`` (K9 on the card;
-    ``args``, kernels.SliceArgs of these very tensors, is reused by the
-    loop)."""
+def slice_ctl(st: StateBatch, ctl, max_steps: int, device="cuda") -> torch.Tensor:
+    """Evaluate the slice loop's condition into ``ctl`` (K9 on the card)."""
     _build.check_on(device, st.alive, ctl)
     if st.alive.device.type == "cpu":
         return slice_ctl_plain(st, ctl, max_steps)
@@ -1047,7 +1047,7 @@ def slice_ctl(st: StateBatch, ctl, max_steps: int, device="cuda", args=None) -> 
 
     global slice_launches
     slice_launches += 1
-    kernels.launch_slice_ctl(args or kernels.SliceArgs(st, ctl, max_steps))
+    kernels.launch_slice_ctl(kernels.SliceArgs(st, ctl, max_steps))
     return ctl
 
 
@@ -1082,22 +1082,12 @@ def _run_impl(cb: CodeBank, env, st: StateBatch, max_steps: int, with_stats: boo
     dev = _build.check_on(device, st.pc, cb.code)
     if dev.type == "cpu":
         return run_plain(cb, st, max_steps, with_stats)
-    from mythril_tpu_torch.laser.cuda import kernels
-
-    # card: max_steps x (K9, K1 [, K8]) queued, the condition on the device
+    # card: one K1 launch of max_steps steps on a copy; it leaves once no
+    # lane is alive and RUNNING, the reference's loop condition, and with
+    # stats folds every step it runs into the histogram
     s = StateBatch(*(x.clone() for x in st))
-    ctl = torch.zeros(4, dtype=torch.int32, device=dev)
     hist = torch.zeros(256 if with_stats else 1, dtype=torch.int32, device=dev)
-    args = kernels.StepArgs(cb, s)
-    k9 = kernels.SliceArgs(s, ctl, max_steps)
-    if with_stats:
-        snap = snapshot(s)
-        k8 = kernels.HistArgs(cb, snap, s, hist, ctl, refresh=True)
-    for _ in range(int(max_steps)):
-        slice_ctl(s, ctl, max_steps, device=dev, args=k9)
-        step(cb, env, s, device=dev, ctl=ctl, inplace=True, args=args)
-        if with_stats:
-            op_hist_update(cb, snap, s, hist, device=dev, args=k8)
+    step_n(cb, env, s, max_steps, device=dev, inplace=True, hist=hist if with_stats else None)
     return s, hist
 
 

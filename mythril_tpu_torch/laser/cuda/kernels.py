@@ -115,8 +115,9 @@ def op_tables(dev) -> torch.Tensor:
 
 class Scratch:
     """Per-(device, L) scratch buffers for the step and the epilogue:
-    K1's per-step lane flags, K4's plan flags, order and dying mask.
-    Shared by every loop on the device, which run one at a time per
+    K1's per-step lane flags and, with stats, each lane's pre-step opcode
+    and steps (``hrec``, int32[2L]); K4's plan flags, order and dying
+    mask. Shared by every loop on the device, which run one at a time per
     stream."""
 
     _cache = {}
@@ -124,6 +125,7 @@ class Scratch:
     def __init__(self, dev, L):
         self.tab = op_tables(dev)
         self.flags = torch.zeros(L, dtype=torch.uint8, device=dev)
+        self.hrec = torch.zeros(2 * L, dtype=torch.int32, device=dev)
         self.eflags = torch.zeros(L, dtype=torch.uint8, device=dev)
         self.order = torch.empty(L, dtype=torch.int32, device=dev)
         self.dying = torch.empty(L, dtype=torch.uint8, device=dev)
@@ -141,15 +143,15 @@ _P = ctypes.POINTER
 _V = ctypes.c_void_p
 _I = ctypes.c_int
 _SIGS = {
-    ("step", "mt_step_run"): [_P(Planes), _P(Bank)] + [_V] * 3 + [_I] * 4 + [_V],
-    ("step", "mt_step_run_info"): [_V],
+    ("step", "mt_step_run"): [_P(Planes), _P(Bank)] + [_V] * 5 + [_I] * 4 + [_V],
+    ("step", "mt_step_run_info"): [_V, _I],
     ("inloop", "mt_unsat_mask"): [_P(Planes), _P(Pool), _V, _V, _I, _V],
     ("inloop", "mt_unsat_mask_info"): [_V],
     ("megakernel", "mt_round_epilogue"): [_P(Planes), _P(Planes)] + [_V] * 8 + [_I, _I, _I, _V, _I, _V],
     ("megakernel", "mt_round_epilogue_info"): [_V],
     ("solve", "mt_solve"): [_V] * 7 + [_I] * 4 + [ctypes.c_uint32, _V],
     ("transfer", "mt_xfer"): [_V, _I, ctypes.c_uint32, _V],
-    ("hist", "mt_op_hist"): [_V, _I, _I] + [_V] * 6 + [_I, _V, _V, _I, _V],
+    ("hist", "mt_op_hist"): [_V, _I, _I] + [_V] * 4 + [_I, _V, _V],
     ("slice", "mt_slice_ctl"): [_V, _V, _I, _V, _I, _V],
     ("mesh", "mt_mesh_plan"): [_P(Planes), _I, _I] + [_V] * 5 + [_I, _V],
     ("mesh", "mt_mesh_steal"): [_P(Planes), _I] + [_V] * 5 + [_I, _V],
@@ -196,33 +198,40 @@ class StepArgs:
         self.n_shards = int(n_shards)
 
 
-def launch_step_run(a: StepArgs, n_steps: int, ctl=None, blocks: int = 0) -> None:
+def launch_step_run(a: StepArgs, n_steps: int, ctl=None, blocks: int = 0, hist=None) -> None:
     """K1: ``n_steps`` steps of every lane in one cooperative launch, of
     as many blocks as the lanes need and the card holds at once
-    (``blocks`` > 0: exactly that many). A launch the card refuses (too
-    large to be resident) raises."""
+    (``blocks`` > 0: exactly that many). With ``hist`` (int32[256]
+    holding u32 bits) the launch also adds every step's retired opcodes
+    into it (K1's stats instance). A launch the card refuses (too large
+    to be resident) raises."""
     sc = a.sc
+    if hist is not None:
+        _checked(hist, "hist", torch.int32, sc.hrec.device)
+        if hist.shape != (256,):
+            raise _build.KernelError("the histogram must be int32[256]")
     rc = _fn("step", "mt_step_run")(
-        ctypes.byref(a.pl), ctypes.byref(a.bk), _vp(sc.tab), _vp(sc.flags), _vp(ctl), a.n_shards, int(n_steps),
-        int(blocks), NFIELDS, a.stream)
+        ctypes.byref(a.pl), ctypes.byref(a.bk), _vp(sc.tab), _vp(sc.flags), _vp(ctl), _vp(hist),
+        _vp(sc.hrec if hist is not None else None), a.n_shards, int(n_steps), int(blocks), NFIELDS, a.stream)
     _build.check(rc, "step run", "step")
 
 
-def _kernel_info(lib: str, name: str, dev, n: int) -> list:
+def _kernel_info(lib: str, name: str, dev, n: int, *extra) -> list:
     out = (ctypes.c_int * n)()
     with torch.cuda.device(dev):
-        _build.check(_fn(lib, name)(ctypes.cast(out, ctypes.c_void_p)), name, lib)
+        _build.check(_fn(lib, name)(ctypes.cast(out, ctypes.c_void_p), *extra), name, lib)
     return list(out)
 
 
 _INFO_KEYS = ("registers", "local_bytes", "shared_bytes", "threads_per_block", "blocks_per_sm", "sms")
 
 
-def step_run_info(dev) -> dict:
-    """K1's compiled resources on ``dev``: registers and local (spill and
-    stack) bytes per thread, static shared bytes and threads per block,
-    blocks resident per SM, SMs."""
-    return dict(zip(_INFO_KEYS, _kernel_info("step", "mt_step_run_info", dev, 6)))
+def step_run_info(dev, stats: bool = False) -> dict:
+    """K1's compiled resources on ``dev`` (its stats instance with
+    ``stats``): registers and local (spill and stack) bytes per thread,
+    static shared bytes and threads per block, blocks resident per SM,
+    SMs."""
+    return dict(zip(_INFO_KEYS, _kernel_info("step", "mt_step_run_info", dev, 6, int(bool(stats)))))
 
 
 def unsat_info(dev) -> dict:
@@ -338,14 +347,14 @@ def launch_epilogue(cb, st, unsat, acc, pv, ctl, max_rounds, scratch, n_shards=1
 
 
 class HistArgs:
-    """The arguments of a K8 launch, checked and built once: the loops
-    launch K8 after every step on the same tensors."""
+    """The arguments of a K8 launch, checked and built once: ``before``
+    needs ``code_id``, ``pc`` and ``steps``, ``after`` its ``steps``."""
 
-    def __init__(self, cb, before, after, hist, ctl=None, refresh=False):
+    def __init__(self, cb, before, after, hist):
         dev = after.steps.device
         L = after.steps.shape[0]
         for name, t in (("b_code_id", before.code_id), ("b_pc", before.pc), ("b_steps", before.steps),
-                        ("a_code_id", after.code_id), ("a_pc", after.pc), ("a_steps", after.steps)):
+                        ("a_steps", after.steps)):
             _checked(t, name, torch.int32, dev)
             if t.shape != (L,):
                 raise _build.KernelError(f"{name} has shape {tuple(t.shape)}, expected ({L},)")
@@ -353,24 +362,19 @@ class HistArgs:
         _checked(hist, "hist", torch.int32, dev)
         if hist.shape != (256,):
             raise _build.KernelError("the histogram must be int32[256]")
-        if ctl is not None:
-            _checked(ctl, "ctl", torch.int32, dev)
         n_codes, CL = cb.code.shape
-        self.argv = (
-            _vp(cb.code), n_codes, CL, _vp(before.code_id), _vp(before.pc), _vp(before.steps),
-            _vp(after.code_id), _vp(after.pc), _vp(after.steps), L, _vp(hist), _vp(ctl), int(refresh),
-            _build.stream(dev))
+        self.argv = (_vp(cb.code), n_codes, CL, _vp(before.code_id), _vp(before.pc), _vp(before.steps),
+                     _vp(after.steps), L, _vp(hist), _build.stream(dev))
 
 
 def launch_op_hist(a: HistArgs) -> None:
     """K8: add one step's retired opcodes into the histogram (int32[256]
-    holding u32 bits); with ``refresh`` the ``before`` planes are
-    overwritten with ``after``'s."""
+    holding u32 bits)."""
     _build.check(_fn("hist", "mt_op_hist")(*a.argv), "op_hist", "hist")
 
 
 class SliceArgs:
-    """The arguments of a K9 launch, checked and built once per loop."""
+    """The arguments of a K9 launch, checked and built once."""
 
     def __init__(self, st: StateBatch, ctl, max_steps: int):
         dev = st.alive.device

@@ -8,14 +8,15 @@ prune, in-loop kill, counter folds, ``pruned_visited`` union, zeroing of
 the dying lanes' counters and a stable compaction that keeps survivors in
 order. The loop runs while ``r < max_rounds`` and some lane is RUNNING;
 the soundness arguments are the reference's. With ``with_stats`` every
-step also folds its retired opcodes into ``hist`` (K8, see
-``engine.op_hist_update``), summed over every step of every round.
+step also folds its retired opcodes into ``hist`` (the reference's
+``op_hist_update``, see ``engine``), summed over every step of every
+round.
 
 On the card the reference's contract holds: ``run_fused`` queues
 ``max_rounds x (K1 + K3 + K4)`` launches with no host sync, one K1
-launch running the round's ``steps_per_round`` steps (with stats, one K1
-and one K8 launch per step instead), and the loop condition lives on the
-device in a control word
+launch running the round's ``steps_per_round`` steps (with stats, K1's
+stats instance, which also folds the histogram inside the launch), and
+the loop condition lives on the device in a control word
 ``ctl = [r, continue]`` that K4 rewrites after each round. Every kernel
 reads it first and returns at once when the loop has ended, which is the
 reference's ``while_loop`` condition evaluated between rounds. The only
@@ -163,19 +164,9 @@ def run_fused(
     k3 = kernels.UnsatArgs(pool, s, ctl, unsat) if with_solve else None
     k4 = kernels.EpilogueArgs(cb, s, unsat, acc, pv, ctl, int(max_rounds), scratch)
     hist = torch.zeros(256 if with_stats else 1, dtype=torch.int32, device=dev)
-    if with_stats:
-        snap = engine.snapshot(s)
-        k8 = kernels.HistArgs(cb, snap, s, hist, ctl, refresh=True)
-    for r in range(int(max_rounds)):
-        if with_stats and r:  # the epilogue moved lanes: a fresh snapshot
-            for x, y in zip(snap, (s.code_id, s.pc, s.steps)):
-                x.copy_(y)
-        if with_stats:  # K8 after every step: one K1 launch per step
-            for _ in range(steps_per_round):
-                engine.step(cb, env, s, device=dev, ctl=ctl, inplace=True, args=args)
-                engine.op_hist_update(cb, snap, s, hist, device=dev, args=k8)
-        else:  # the round's steps in one K1 launch
-            engine.step_n(cb, env, s, steps_per_round, device=dev, ctl=ctl, inplace=True, args=args)
+    for _ in range(int(max_rounds)):  # the round's steps in one K1 launch
+        engine.step_n(cb, env, s, steps_per_round, device=dev, ctl=ctl, inplace=True, args=args,
+                      hist=hist if with_stats else None)
         if with_solve:
             inloop_solve.unsat_mask(pool, s, device=dev, ctl=ctl, out=unsat, args=k3)
         round_epilogue(cb, s, unsat, acc, pv, ctl, max_rounds, scratch, args=k4)
@@ -287,11 +278,11 @@ def run_fused_mesh(
     ``pruned_visited`` ORs over them, as the reference's psums do.
 
     On the card ``max_rounds x (K1 + K3 + K4 + K10 + K11 + K4)`` launches
-    are queued with no host sync (with stats, ``steps_per_round x (K1 +
-    K8)`` in place of the one K1 launch); the round's
-    control word is committed after the steal and its compaction, which
-    run under it (the reference's body is round + steal). The caller
-    fetches ``info`` once."""
+    are queued with no host sync (with stats, K1's stats instance folds
+    the histogram inside its launch); the round's control word is
+    committed after the steal and its compaction, which run under it
+    (the reference's body is round + steal). The caller fetches ``info``
+    once."""
     n = mesh.n
     L = st.pc.shape[0]
     if L % n != 0:
@@ -315,19 +306,9 @@ def run_fused_mesh(
     k3 = kernels.UnsatArgs(pool, s, ctl, unsat) if with_solve else None
     k4 = kernels.EpilogueArgs(cb, s, unsat, acc, pv, ctl, int(max_rounds), scratch, n)
     hist = torch.zeros(256 if with_stats else 1, dtype=torch.int32, device=dev)
-    if with_stats:
-        snap = engine.snapshot(s)
-        k8 = kernels.HistArgs(cb, snap, s, hist, ctl, refresh=True)
-    for r in range(int(max_rounds)):
-        if with_stats and r:  # the epilogue and the steal moved lanes
-            for x, y in zip(snap, (s.code_id, s.pc, s.steps)):
-                x.copy_(y)
-        if with_stats:
-            for _ in range(steps_per_round):
-                engine.step(cb, env, s, device=dev, ctl=ctl, inplace=True, args=args, n_shards=n)
-                engine.op_hist_update(cb, snap, s, hist, device=dev, args=k8)
-        else:
-            engine.step_n(cb, env, s, steps_per_round, device=dev, ctl=ctl, inplace=True, args=args, n_shards=n)
+    for _ in range(int(max_rounds)):
+        engine.step_n(cb, env, s, steps_per_round, device=dev, ctl=ctl, inplace=True, args=args, n_shards=n,
+                      hist=hist if with_stats else None)
         if with_solve:
             inloop_solve.unsat_mask(pool, s, device=dev, ctl=ctl, out=unsat, args=k3)
         round_epilogue(cb, s, unsat, acc, pv, ctl, max_rounds, scratch, n, flags=0, args=k4)

@@ -336,7 +336,7 @@ def round_impl_plain(cb, st: StateBatch, steps_per_round: int = 64, do_rebalance
 def round_impl(cb, env, st: StateBatch, steps_per_round: int = 64, do_rebalance: bool = False,
                n_shards: int = 1, device="cuda"):
     """One round of the sync mesh tier: up to ``steps_per_round`` steps
-    while some lane runs (``engine.run``: K9 + K1/K2 on the card), then,
+    while some lane runs (``engine.run``: one K1 launch on the card), then,
     with ``do_rebalance``, the deal (K12), then the per-shard occupancy
     (K10). Returns ``(st, occ)``; ``occ`` (i32[n_shards], on the device)
     is the host's one fetch per round for quiescence and the next

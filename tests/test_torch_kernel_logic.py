@@ -10,6 +10,7 @@ kernels."""
 
 import ctypes
 import os
+from types import SimpleNamespace
 
 import numpy as np
 import pytest
@@ -43,15 +44,17 @@ def _vp(t):
     return ctypes.c_void_p(t.data_ptr())
 
 
-def _emu_k1(lib, cb, st, n_steps, n_shards=1, order=None, nthreads=128, ctl=None):
-    """One emulated K1 launch of ``n_steps`` steps on a copy of ``st``."""
+def _emu_k1(lib, cb, st, n_steps, n_shards=1, order=None, nthreads=128, ctl=None, hist=None):
+    """One emulated K1 launch of ``n_steps`` steps on a copy of ``st``;
+    with ``hist`` (int32[256], added into in place) its stats instance."""
     st = batch.StateBatch(*(x.clone() for x in st))
     sc = kernels.Scratch.get(torch.device("cpu"), st.pc.shape[0])
     pl = kernels.planes(st, cb.code.shape[0], cb.code.shape[1])
     bk = kernels.bank(cb)
     order = None if order is None else torch.as_tensor(order, dtype=torch.int32)
     rc = lib.emu_step_run(ctypes.byref(pl), ctypes.byref(bk), _vp(sc.tab), _vp(sc.flags),
-                          _vp(ctl) if ctl is not None else None, n_shards, n_steps, nthreads,
+                          _vp(ctl) if ctl is not None else None, _vp(hist) if hist is not None else None,
+                          _vp(sc.hrec) if hist is not None else None, n_shards, n_steps, nthreads,
                           _vp(order) if order is not None else None)
     assert rc == 0
     return st
@@ -232,33 +235,26 @@ def test_unsat_logic_matches_twin(emu, seed):
     assert want.any() and not want.all()
 
 
-def _emu_hist(lib, cb, snap, s, hist, ctl, refresh=True):
+def _emu_hist(lib, cb, before, after, hist):
     n_codes, CL = cb.code.shape
-    assert lib.emu_op_hist(_vp(cb.code), n_codes, CL, _vp(snap.code_id), _vp(snap.pc), _vp(snap.steps),
-                           _vp(s.code_id), _vp(s.pc), _vp(s.steps), s.steps.shape[0], _vp(hist),
-                           _vp(ctl) if ctl is not None else None, int(refresh)) == 0
+    assert lib.emu_op_hist(_vp(cb.code), n_codes, CL, _vp(before.code_id), _vp(before.pc), _vp(before.steps),
+                           _vp(after.steps), after.steps.shape[0], _vp(hist)) == 0
 
 
 def _emu_fused(lib, cb, st, max_rounds, steps_per_round, with_solve, pool, with_stats=False):
-    """run_fused's card loop, with the emulated kernels."""
+    """run_fused's card loop, with the emulated kernels: one K1 launch a
+    round (with stats its stats instance), K3, K4."""
     L = st.pc.shape[0]
     s = batch.StateBatch(*(x.clone() for x in st))
-    hist = torch.zeros(256, dtype=torch.int32)
+    hist = torch.zeros(256 if with_stats else 1, dtype=torch.int32)
     scratch = batch.StateBatch(*(torch.empty_like(x) for x in s))
     ctl = torch.zeros(4, dtype=torch.int32)
     ctl[1] = int(bool((s.alive & (s.status == 0)).any()) and max_rounds > 0)
     acc = torch.zeros(4, dtype=torch.int32)
     pv = torch.zeros(cb.code.shape, dtype=torch.bool)
     for _ in range(max_rounds):
-        snap = engine.snapshot(s)
-        if with_stats:  # one K1 launch and one K8 launch per step
-            for _ in range(steps_per_round):
-                for x, y in zip(s, _emu_k1(lib, cb, s, 1, ctl=ctl)):
-                    x.copy_(y)
-                _emu_hist(lib, cb, snap, s, hist, ctl)
-        else:  # the round in one K1 launch
-            for x, y in zip(s, _emu_k1(lib, cb, s, steps_per_round, ctl=ctl)):
-                x.copy_(y)
+        for x, y in zip(s, _emu_k1(lib, cb, s, steps_per_round, ctl=ctl, hist=hist if with_stats else None)):
+            x.copy_(y)
         unsat = torch.zeros(L, dtype=torch.bool)
         if with_solve and ctl[1]:
             unsat = _emu_unsat(lib, s, pool)
@@ -276,70 +272,75 @@ def test_fused_loop_logic_matches_twin(emu, name, with_solve):
     s, info, pv, hist = _emu_fused(emu, cb, st, 4, 24, with_solve, pool, with_stats=with_solve)
     _assert_same(s, want.st, f"{name} fused")
     assert torch.equal(info, want.info) and torch.equal(pv, want.pruned_visited)
-    if with_solve:  # stats on: K8 inside the rounds
+    if with_solve:  # stats on: the histogram folded inside K1's launches
         assert torch.equal(hist, want.hist) and int(hist.sum()) > 0
 
 
 def test_op_hist_logic_matches_twin(emu):
-    """K8's lane logic on code ids, pcs and step counters out of range,
-    and its snapshot refresh."""
+    """K8's lane logic on code ids, pcs and step counters out of range."""
     r = np.random.default_rng(6)
     L = 96
     code = torch.as_tensor(r.integers(0, 256, (3, 64), dtype=np.uint8))
     cb = batch.CodeBank(*([None] * len(batch.CodeBank._fields)))._replace(code=code)
-    snap = engine.Snapshot(torch.as_tensor(r.choice([-7, -4, -1, 0, 2, 3, 1 << 30], L).astype(np.int32)),
-                           torch.as_tensor(r.choice([-(1 << 31), -1, 0, 63, 64, 900], L).astype(np.int32)),
-                           torch.as_tensor(r.choice([-(1 << 31), -1, 0, 7, (1 << 31) - 1], L).astype(np.int32)))
-    after = engine.Snapshot(*(torch.as_tensor(r.integers(-5, 70, L).astype(np.int32)) for _ in range(2)),
-                            (snap.steps.to(torch.int64) + torch.as_tensor(r.integers(-1, 2, L))).to(torch.int32))
+    before = SimpleNamespace(code_id=torch.as_tensor(r.choice([-7, -4, -1, 0, 2, 3, 1 << 30], L).astype(np.int32)),
+                             pc=torch.as_tensor(r.choice([-(1 << 31), -1, 0, 63, 64, 900], L).astype(np.int32)),
+                             steps=torch.as_tensor(r.choice([-(1 << 31), -1, 0, 7, (1 << 31) - 1], L).astype(np.int32)))
+    after = SimpleNamespace(steps=(before.steps.to(torch.int64) + torch.as_tensor(r.integers(-1, 2, L))).to(torch.int32))
     hist0 = torch.as_tensor(r.integers(0, 1 << 32, 256, dtype=np.uint64).astype(np.uint32).view(np.int32))
-    want = engine.op_hist_update_plain(cb, snap, after, hist0)
+    want = engine.op_hist_update_plain(cb, before, after, hist0)
     hist = hist0.clone()
-    _emu_hist(emu, cb, snap, after, hist, torch.tensor([0, 1, 0, 0], dtype=torch.int32))
+    _emu_hist(emu, cb, before, after, hist)
     assert torch.equal(hist, want) and not torch.equal(hist, hist0)
-    assert all(torch.equal(x, y) for x, y in zip(snap, after))  # refreshed
-    stopped = hist.clone()
-    _emu_hist(emu, cb, snap, after, stopped, torch.tensor([0, 0, 0, 0], dtype=torch.int32))
-    assert torch.equal(stopped, hist)  # a stopped loop's K8 adds nothing
 
 
 def _emu_run(lib, cb, st, max_steps, with_stats):
-    """engine.run_with_stats's card loop, with the emulated kernels: K9
-    before each step, the step and K8 behind the control word."""
+    """engine.run_with_stats's card loop, with the emulated kernel: one K1
+    launch of ``max_steps`` steps (with stats its stats instance)."""
+    hist = torch.zeros(256 if with_stats else 1, dtype=torch.int32)
+    return _emu_k1(lib, cb, st, max_steps, hist=hist if with_stats else None), hist
+
+
+def _emu_slice_ctl_chain(lib, cb, st, max_steps):
+    """K9 before each one-step K1 launch behind its control word: the
+    condition K9 commits, step by step. Returns the batch and ``ctl``."""
     s = batch.StateBatch(*(x.clone() for x in st))
     ctl = torch.zeros(4, dtype=torch.int32)
-    hist = torch.zeros(256 if with_stats else 1, dtype=torch.int32)
-    snap = engine.snapshot(s)
     for _ in range(max_steps):
         assert lib.emu_slice_ctl(_vp(s.alive), _vp(s.status), s.alive.shape[0], _vp(ctl), max_steps) == 0
         for x, y in zip(s, _emu_k1(lib, cb, s, 1, ctl=ctl)):
             x.copy_(y)
-        if with_stats:
-            _emu_hist(lib, cb, snap, s, hist, ctl)
-    return s, hist, ctl
+    return s, ctl
+
+
+def _short_inputs():
+    """Every lane halts after four steps."""
+    cb = batch.make_code_bank([assemble("PUSH1 0x01\nPUSH1 0x02\nADD\nSTOP")], CFG.code_len, host_ops=HOST_OPS,
+                              freeze_errors=True, device="cpu")
+    return cb, _inputs("stress", 3)[1]
 
 
 @pytest.mark.parametrize("name", [*sorted(SOURCES), "short"])
 def test_slice_loop_logic_matches_twin(emu, name):
-    if name == "short":  # every lane halts before max_steps
-        cb = batch.make_code_bank([assemble("PUSH1 0x01\nPUSH1 0x02\nADD\nSTOP")], CFG.code_len, host_ops=HOST_OPS,
-                                  freeze_errors=True, device="cpu")
-        st = _inputs("stress", 3)[1]
-    else:
-        cb, st = _inputs(name, 3)
+    """The slice as one K1 launch of max_steps steps against the twin's
+    loop, stats on and off (every plane and the histogram), on slices
+    that hit max_steps and one that every lane leaves early; and K9's
+    control word, committed before each step, against its twin's."""
+    cb, st = _short_inputs() if name == "short" else _inputs(name, 3)
     for with_stats in (True, False):
         want, want_hist = engine.run_plain(cb, st, 40, with_stats)
-        s, hist, ctl = _emu_run(emu, cb, st, 40, with_stats)
+        s, hist = _emu_run(emu, cb, st, 40, with_stats)
         _assert_same(s, want, f"{name} slice")
         assert torch.equal(hist, want_hist)
-        # K9's twin commits the same control word
-        ctl_t = torch.zeros(4, dtype=torch.int32)
-        s_t = st
-        for _ in range(40):
-            engine.slice_ctl_plain(s_t, ctl_t, 40)
-            if ctl_t[1]:
-                s_t = engine.step_plain(cb, s_t)
-        assert torch.equal(ctl, ctl_t)
+    # K9's twin commits the same control word
+    s, ctl = _emu_slice_ctl_chain(emu, cb, st, 40)
+    _assert_same(s, want, f"{name} K9 chain")
+    ctl_t = torch.zeros(4, dtype=torch.int32)
+    s_t = st
+    for _ in range(40):
+        engine.slice_ctl_plain(s_t, ctl_t, 40)
+        if ctl_t[1]:
+            s_t = engine.step_plain(cb, s_t)
+    assert torch.equal(ctl, ctl_t)
     ran = int(ctl[0])
     assert (ran < 40) == (name == "short") and ran > 0
     assert bool(ctl[2]) == bool((s.alive & (s.status == 0)).any())
@@ -579,3 +580,128 @@ def test_prebuilt_args_refuse_other_tensors(which):
     for args in bad:
         with pytest.raises(_build.KernelError):
             a.check(*args)
+
+
+# ---- K1's stats instance: the histogram folded inside the launch ------------
+
+
+def _twin_steps_hist(cb, st, n_steps, hist0=None):
+    """``n_steps`` twin steps, each followed by op_hist_update_plain, as
+    the reference's loops fold them. Returns the batch, the histogram and
+    how many fork children were binned from their lane's stale row."""
+    hist = torch.zeros(256, dtype=torch.int32) if hist0 is None else hist0.clone()
+    stale = 0
+    for _ in range(n_steps):
+        nst = engine.step_plain(cb, st)
+        stale += int((~st.alive & nst.alive & (nst.steps > st.steps)).sum())
+        hist = engine.op_hist_update_plain(cb, st, nst, hist)
+        st = nst
+    return st, hist, stale
+
+
+_TWIN_HIST = {}
+
+
+@pytest.mark.parametrize("order", ["ascending", "reversed"])
+@pytest.mark.parametrize("nthreads", [32, 64, 128])
+@pytest.mark.parametrize("name", ["stress", "bectoken"])
+def test_step_run_hist_matches_twin(emu, name, nthreads, order):
+    """One emulated launch of K1's stats instance, 64 steps of a forking
+    batch, against 64 twin steps each followed by op_hist_update_plain:
+    every plane and the histogram equal, with blocks of 32, 64 and 128
+    threads and the lanes taken in ascending and reversed order."""
+    cb, st = _inputs(name, 5)
+    if name not in _TWIN_HIST:
+        _TWIN_HIST[name] = _twin_steps_hist(cb, st, 64)
+    want, want_hist, stale = _TWIN_HIST[name]
+    assert int(want.alive.sum()) > int(st.alive.sum()) and stale > 0  # children binned from stale rows
+    lanes = list(range(st.pc.shape[0]))
+    hist = torch.zeros(256, dtype=torch.int32)
+    got = _emu_k1(emu, cb, st, 64, nthreads=nthreads, order=lanes[::-1] if order == "reversed" else None,
+                  hist=hist)
+    _assert_same(got, want, f"{name} nthreads={nthreads} {order}")
+    assert torch.equal(hist, want_hist)
+
+
+def test_step_run_hist_bins_children_from_stale_rows(emu):
+    """A step in which parents fork into free lanes whose stale rows hold
+    distinct opcodes at their pc and steps below and above (and, with a
+    third child, equal to) the parent's post-step steps: each child lands in the bin of its lane's
+    own stale row, and only where the parent's steps exceed the row's, as
+    the reference's whole-batch compare has it. A child binned from its
+    parent (JUMPI, always counted) would show in the histogram."""
+    cb, st = _inputs("stress", 5)
+    for _ in range(60):
+        nxt = engine.step_plain(cb, st)
+        children = (~st.alive & nxt.alive).nonzero().flatten().tolist()
+        if len(children) >= 2:
+            break
+        st = nxt
+    assert len(children) >= 2
+    code = cb.code[0].tolist()
+    code_len = int(cb.code_len[0])
+    first_at = {}
+    for pc in range(code_len):
+        if code[pc] != 0x57:
+            first_at.setdefault(code[pc], pc)
+    free = (~st.alive).nonzero().flatten().tolist()
+    assert len(first_at) >= len(free)
+    pcs = st.pc.clone()
+    steps = st.steps.clone()
+    for i, lane in enumerate(free):
+        pcs[lane] = list(first_at.values())[i]
+        steps[lane] = 1000 + 7 * i
+    for i, lane in enumerate(children):
+        steps[lane] = int(nxt.steps[lane]) + (-1 - i, 5 + i, 0)[i % 3]
+    st = st._replace(pc=pcs, steps=steps)
+    nxt = engine.step_plain(cb, st)
+    assert (~st.alive & nxt.alive).nonzero().flatten().tolist() == children
+    counted = nxt.steps[children] > st.steps[children]
+    assert counted.any() and (~counted).any()
+    want_hist = engine.op_hist_update_plain(cb, st, nxt, torch.zeros(256, dtype=torch.int32))
+    for lane in torch.as_tensor(children)[counted].tolist():
+        assert int(want_hist[code[int(st.pc[lane])]]) >= 1
+    for n_steps in (1, 3):
+        want, want_hist, _ = _twin_steps_hist(cb, st, n_steps)
+        for order in (None, list(range(st.pc.shape[0]))[::-1]):
+            hist = torch.zeros(256, dtype=torch.int32)
+            got = _emu_k1(emu, cb, st, n_steps, order=order, hist=hist)
+            _assert_same(got, want, f"stale rows, {n_steps} steps, order {order}")
+            assert torch.equal(hist, want_hist), (hist - want_hist).nonzero().flatten().tolist()
+
+
+@pytest.mark.parametrize("case", ["ctl_stopped", "wraps"])
+def test_step_run_hist_edge_cases(emu, case):
+    """A launch that the loop's control word stops adds nothing and steps
+    nothing; a histogram seeded near 2^32 wraps mod 2^32, as the twin's
+    u32 bins do."""
+    cb, st = _inputs("bectoken", 5)
+    r = np.random.default_rng(8)
+    if case == "ctl_stopped":
+        hist0 = torch.as_tensor(r.integers(0, 1 << 32, 256, dtype=np.uint64).astype(np.uint32).view(np.int32))
+        hist = hist0.clone()
+        got = _emu_k1(emu, cb, st, 64, ctl=torch.tensor([3, 0, 0, 0], dtype=torch.int32), hist=hist)
+        _assert_same(got, st, "stopped")
+        assert torch.equal(hist, hist0)
+        return
+    hist0 = torch.full((256,), -3, dtype=torch.int32)  # 2^32 - 3 in every bin
+    want, want_hist, _ = _twin_steps_hist(cb, st, 64, hist0)
+    hist = hist0.clone()
+    got = _emu_k1(emu, cb, st, 64, ctl=torch.tensor([0, 1, 0, 0], dtype=torch.int32), hist=hist)
+    _assert_same(got, want, "wraps")
+    assert torch.equal(hist, want_hist)
+    wrapped = (hist.to(torch.int64) & engine.M32) < (hist0.to(torch.int64) & engine.M32)
+    assert wrapped.any() and (hist >= 0).any()
+
+
+@pytest.mark.parametrize("name", ["stress", "short"])
+def test_step_n_hist_on_cpu_matches_run_plain(name):
+    """``engine.step_n(..., hist=)`` on CPU tensors, the twin's form of K1's
+    stats instance: max_steps steps with the histogram added in place
+    equal ``run_plain``'s slice, which stops once no lane runs."""
+    cb, st = _short_inputs() if name == "short" else _inputs(name, 3)
+    want, want_hist = engine.run_plain(cb, st, 40, True)
+    hist = torch.zeros(256, dtype=torch.int32)
+    got = engine.step_n(cb, None, st, 40, device="cpu", hist=hist)
+    _assert_same(got, want, name)
+    assert torch.equal(hist, want_hist) and int(hist.sum()) > 0

@@ -18,11 +18,13 @@ import pytest
 
 import mythril_tpu.laser.tpu.backend as ref_backend
 import mythril_tpu_torch.laser.cuda.backend as port_backend
+from mythril_tpu.analysis.module.util import reset_callback_modules as ref_reset_callback_modules
 from mythril_tpu.analysis.security import fire_lasers as ref_fire_lasers
 from mythril_tpu.analysis.symbolic import SymExecWrapper as RefSymExecWrapper
 from mythril_tpu.disassembler.asm import assemble as ref_assemble
 from mythril_tpu.ethereum.evmcontract import EVMContract as RefEVMContract
 from mythril_tpu.laser.tpu.batch import BatchConfig as RefBatchConfig
+from mythril_tpu_torch.analysis.module.util import reset_callback_modules as port_reset_callback_modules
 from mythril_tpu_torch.analysis.security import fire_lasers
 from mythril_tpu_torch.analysis.symbolic import SymExecWrapper
 from mythril_tpu_torch.disassembler.asm import assemble
@@ -83,11 +85,15 @@ def _creation(asm, runtime_hex):
 def _analyze(package):
     if package == "port":
         asm, contract_cls, wrapper, fire, strategy = assemble, EVMContract, SymExecWrapper, fire_lasers, "cuda-batch"
-        backend = port_backend
+        backend, reset = port_backend, port_reset_callback_modules
     else:
         asm, contract_cls, wrapper, fire, strategy = (ref_assemble, RefEVMContract, RefSymExecWrapper,
                                                       ref_fire_lasers, "tpu-batch")
-        backend = ref_backend
+        backend, reset = ref_backend, ref_reset_callback_modules
+    # the detection modules are process-wide, and fire_lasers drains only
+    # the modules it is asked for: start from empty issue records, so an
+    # earlier analysis in this process cannot add its issues to this one's
+    reset()
     runtime = asm(RUNTIME).hex()
     contract = contract_cls(code=runtime, creation_code=_creation(asm, runtime), name="T")
     sym = wrapper(contract, address=0x1234, strategy=strategy, execution_timeout=480, transaction_count=1,

@@ -64,14 +64,16 @@ def _inputs(name, seed):
     return cb, batch.StateBatch(*(x[SPREAD] for x in st))
 
 
-def _emu_k1(lib, cb, st, n, n_steps, ctl=None, nthreads=128):
-    """One emulated K1 launch of ``n_steps`` steps over ``n`` lane blocks."""
+def _emu_k1(lib, cb, st, n, n_steps, ctl=None, nthreads=128, hist=None):
+    """One emulated K1 launch of ``n_steps`` steps over ``n`` lane blocks;
+    with ``hist`` (added into in place) its stats instance."""
     st = _clone(st)
     sc = kernels.Scratch.get(torch.device("cpu"), st.pc.shape[0])
     pl = kernels.planes(st, cb.code.shape[0], cb.code.shape[1])
     bk = kernels.bank(cb)
-    rc = lib.emu_step_run(ctypes.byref(pl), ctypes.byref(bk), _vp(sc.tab), _vp(sc.flags), _vp(ctl), n, n_steps,
-                          nthreads, None)
+    rc = lib.emu_step_run(ctypes.byref(pl), ctypes.byref(bk), _vp(sc.tab), _vp(sc.flags), _vp(ctl),
+                          _vp(hist) if hist is not None else None, _vp(sc.hrec) if hist is not None else None,
+                          n, n_steps, nthreads, None)
     assert rc == 0
     return st
 
@@ -271,7 +273,8 @@ def test_sharded_compaction_logic_gate(emu, n, gate):
 
 
 def _emu_fused_mesh(lib, cb, st, n, max_rounds, steps_per_round, with_solve, pool, with_stats):
-    """run_fused_mesh's card loop, with the emulated kernels."""
+    """run_fused_mesh's card loop, with the emulated kernels: one K1
+    launch a round (with stats its stats instance), K3, K4, K10, K11, K4."""
     L = st.pc.shape[0]
     s = _clone(st)
     hist = torch.zeros(256 if with_stats else 1, dtype=torch.int32)
@@ -282,20 +285,9 @@ def _emu_fused_mesh(lib, cb, st, n, max_rounds, steps_per_round, with_solve, poo
     pv = torch.zeros(cb.code.shape, dtype=torch.bool)
     unsat = torch.zeros(L, dtype=torch.bool)
     mctl = torch.zeros(4, dtype=torch.int32)
-    snap = engine.snapshot(s)
-    for r in range(max_rounds):
-        if r:
-            snap = engine.snapshot(s)
-        if with_stats:  # one K1 launch and one K8 launch per step
-            for _ in range(steps_per_round):
-                for x, y in zip(s, _emu_k1(lib, cb, s, n, 1, ctl=ctl)):
-                    x.copy_(y)
-                CL = cb.code.shape[1]
-                assert lib.emu_op_hist(_vp(cb.code), 1, CL, _vp(snap.code_id), _vp(snap.pc), _vp(snap.steps),
-                                       _vp(s.code_id), _vp(s.pc), _vp(s.steps), L, _vp(hist), _vp(ctl), 1) == 0
-        else:  # the round in one K1 launch
-            for x, y in zip(s, _emu_k1(lib, cb, s, n, steps_per_round, ctl=ctl)):
-                x.copy_(y)
+    for _ in range(max_rounds):
+        for x, y in zip(s, _emu_k1(lib, cb, s, n, steps_per_round, ctl=ctl, hist=hist if with_stats else None)):
+            x.copy_(y)
         if with_solve and ctl[1]:
             pl = kernels.planes(s, 1, cb.code.shape[1])
             assert lib.emu_unsat(ctypes.byref(pl), ctypes.byref(kernels.pool_struct(pool)), _vp(unsat), 0) == 0
@@ -327,3 +319,20 @@ def test_fused_mesh_loop_logic_matches_twin(emu, name):
     stats = megakernel.decode_mesh_info(want.info, 8)
     if name == "spin":
         assert stats.steal_events == 1 and stats.steal_lanes == 2 and stats.rounds == 3
+
+
+@pytest.mark.parametrize("with_stats", [True, False], ids=["stats_on", "stats_off"])
+@pytest.mark.parametrize("n", [1, 2])
+def test_fused_mesh_loop_one_launch_a_round(emu, n, with_stats):
+    """The fused mesh loop as the card runs it, one K1 launch a round with
+    the histogram folded inside it, against the twin's loop over one and
+    two lane shards, stats on and off: every plane, info, pruned_visited
+    and the histogram."""
+    cb, st = _inputs("bectoken", 9)
+    pool = inloop_solve.empty_pool("cpu")
+    want = megakernel.run_fused_mesh_plain(cb, st, n, 3, 24, True, pool, with_stats)
+    s, info, pv, hist = _emu_fused_mesh(emu, cb, st, n, 3, 24, True, pool, with_stats)
+    _assert_same(s, want.st, f"n={n} stats={with_stats}")
+    assert info.tolist() == want.info.tolist()
+    assert torch.equal(pv, want.pruned_visited) and torch.equal(hist, want.hist)
+    assert (int(hist.sum()) > 0) == with_stats

@@ -84,3 +84,49 @@ def test_kernel_plane_table_matches_statebatch():
     body = src[src.index("enum Field {") + len("enum Field {"): src.index("NFIELDS")]
     names = [n.strip()[2:].lower() for n in body.replace("\n", " ").split(",") if n.strip()]
     assert names == list(StateBatch._fields)
+
+
+# A stand-in for an A/B script's RUN_ONE: prints the digest and ok flag
+# that its checkout's files hold, or fails where the checkout says so.
+_AB_RUN_ONE = r"""
+import json, os, sys
+if os.path.exists("fail"):
+    sys.exit(3)
+print("noise")
+print(json.dumps({"ok": not os.path.exists("not_ok"), "arg": sys.argv[1],
+                  "items": {"x": {"digest": open("digest").read(), "ms": 1.0}, "y": {"ms": 2.0}}}))
+"""
+
+
+@pytest.mark.parametrize("case, rc", [("agree", 0), ("digests_differ", 1), ("run_fails", 1), ("not_ok", 1)])
+def test_ab_main_runs_turns_and_holds_digests(tmp_path, capsys, case, rc):
+    """The A/B scripts' shared driver: each turn in its checkout, in the
+    order given; a failed run, an ok of false or digests that differ
+    between the runs fail it."""
+    import json
+
+    from mythril_tpu_torch.ab import ab_main
+
+    for key in "AB":
+        (tmp_path / key).mkdir()
+        (tmp_path / key / "digest").write_text("d" if case != "digests_differ" or key == "A" else "e")
+    if case == "run_fails":
+        (tmp_path / "B" / "fail").write_text("")
+    if case == "not_ok":
+        (tmp_path / "A" / "not_ok").write_text("")
+
+    def options(ap):
+        ap.add_argument("--n", type=int, default=4)
+
+    got = ab_main("doc", _AB_RUN_ONE, lambda a: (a.n,), options,
+                  [str(tmp_path / "A"), str(tmp_path / "B"), "--order", "ABBA", "--n", "7"])
+    lines = [json.loads(ln) for ln in capsys.readouterr().out.splitlines()]
+    assert got == rc
+    runs = lines[:4]
+    assert [r["tree"] for r in runs] == list("ABBA") and [r["run"] for r in runs] == [0, 1, 2, 3]
+    for r in runs:
+        if case == "run_fails" and r["tree"] == "B":
+            assert r["rc"] == 3
+        else:
+            assert r["arg"] == "7" and r["path"] == str(tmp_path / r["tree"])
+    assert lines[4] == {"outputs_agree": case != "digests_differ", "differ": ["x"] if case == "digests_differ" else []}
