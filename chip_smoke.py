@@ -81,26 +81,35 @@ phases that each print one JSON line:
    round; then the times of K8 and K9 through their engine entry points
    (and of each launch alone, its arguments built once: launch_ms);
 12. the mesh tiers, 8 lane shards of the one card (64 lanes each):
-   K10 (steal plan, counts), K11 (lane moves) and K12 (deal) against
-   their twins on tagged batches, K1 and K4 with the shard count,
-   run_fused_mesh (4 rounds x 256 steps, every seed in shard 0, under
-   sync debug mode "error", one K1 launch a round) on becstress (stats
-   on) and BECToken, and one sharded_round with the deal (one K1 launch,
-   K10, K12, no K9), each against the twin's run; the
+   the steal kernel (K10's counts and plan and K11's moves, one kernel)
+   in each use (occupancy_impl, steal_plan, steal_apply of a given plan,
+   the fused loop's steal_round from nonzero counters, and a steal round
+   of a stopped loop, which writes nothing) against the twins, at 64,
+   160, 512 and 1024 lanes over 1, 2, 8 and 64 shards where they divide,
+   on six kinds of tagged batches; K12 (deal) against its twin, K1 and
+   K4 with the shard count, run_fused_mesh (4 rounds x 256 steps, every
+   seed in shard 0, under sync debug mode "error", one K1 launch and one
+   steal launch a round) on becstress (stats on) and BECToken, and one
+   sharded_round with the deal (one K1 launch, one counting steal
+   launch, K12, no K9), each against the twin's run; the
    skew demos (MULTICHIP_r06's 64 lanes with 16 spinning on shards 0-1:
    one steal of 12 lanes, occupancy [2]*8, 4096 steps; and 512 lanes
    with 128 spinning: 96 lanes, [16]*8), held against the twin too;
    BECToken (3 tx, 120 s) through SymExecWrapper over the mesh
    (MYTHRIL_TPU_MESH=on; the strategy warms itself inside the run, as
    in the e2e phases): [101@28, 101@104], fused mesh rounds, no
-   degraded round; then the times of K10-K12 and of the
-   mesh super-round beside run_fused on the same seed.
+   degraded round, one steal launch a round; then the steal kernel's
+   times in each use on the 96-lane steal state and on a gated no-steal
+   state (through its entry point, and the launch alone), its registers
+   and the ptxas lines of mesh.cu, K12's time, and the mesh super-round
+   beside run_fused on the same seed.
 
 The last three lines are the kernels JSON (K1-K12), the card's name and
 power limit, and {"ok": true, "device": {...}}. Any mismatch or
 exception exits non-zero without that last line. Imports nothing of JAX.
 """
 
+import functools
 import json
 import os
 import subprocess
@@ -109,6 +118,7 @@ import time
 import traceback
 
 HERE = os.path.dirname(os.path.abspath(__file__))
+T0 = time.time()
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3 peak memory rate
 
 STRESS_SRC = """
@@ -184,6 +194,8 @@ ALWAYS_HOST = (0x00, 0xF3, 0xFD, 0xFF, 0xFE)
 
 
 def emit(obj):
+    if "phase" in obj:  # seconds since the script started, to see where its time limit goes
+        obj = {**obj, "t_s": round(time.time() - T0, 1)}
     print(json.dumps(obj), flush=True)
 
 
@@ -256,6 +268,7 @@ def main():
         if kid in seg_err:
             e["max_abs_err"] = max(e["max_abs_err"], seg_err[kid])
     entries += mesh_entries
+    check_late_handoff()
     emit({"kernels": entries})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -900,6 +913,42 @@ def compare_transfer(dev, cfg, max_err):
 
 
 EXPECTED_ISSUES = {"becstress": [("101", 8)], "bectoken": [("101", 28), ("101", 104)]}
+# BECToken's 101@104 lies on a path where receivers read from different
+# calldata words alias one storage slot. The device's storage plane matches
+# symbolic keys by term, as the reference's does, so only the host explores
+# that path: an analysis finds 101@104 where the host has run tx 1's
+# batchTransfer loop before the engagement gate (device_engage_after_s, the
+# reference's 1.5 s of wall clock) hands the frontier to the device, and
+# misses it where the gate opens earlier (ROADMAP.md section C). Replays
+# with the gate opened at a state count (mythril_tpu_torch/ab_becstress.py
+# --device cpu --engage-after-states N) find [101@28] alone for N <= 88 and
+# both issues for N >= 89; on the card, handoffs at 64-82 states missed
+# 101@104 and handoffs at 93-152 states found it.
+LOOP_HANDOFF_STATES = 89
+EARLY_HANDOFF_ISSUES = {"bectoken": [("101", 28)]}
+E2E_RUNS = []  # (phase, contract, handoff, early) of every e2e analysis this run
+
+
+def expected_issues(phase, name, handoff):
+    """The issue set the reference's semantics give an analysis of ``name``
+    whose engagement gate opened at ``handoff`` (``HandoffProbe.at``), and
+    whether that handoff came before the host ran BECToken's loop. Records
+    the analysis in ``E2E_RUNS``; ``check_late_handoff`` then demands that
+    at least one BECToken analysis of the run was held to the full set."""
+    early = name in EARLY_HANDOFF_ISSUES and handoff is not None and handoff["states"] < LOOP_HANDOFF_STATES
+    E2E_RUNS.append((phase, name, handoff, early))
+    return (EARLY_HANDOFF_ISSUES if early else EXPECTED_ISSUES)[name], early
+
+
+def check_late_handoff():
+    """Fails unless some BECToken analysis of this run handed off after the
+    host ran the loop, so that 101@104 was demanded of the port on the card."""
+    runs = [r for r in E2E_RUNS if r[1] in EARLY_HANDOFF_ISSUES]
+    emit({"phase": "e2e_handoffs", "loop_handoff_states": LOOP_HANDOFF_STATES,
+          "runs": [{"phase": p, "contract": c, "handoff": h, "before_loop": e} for p, c, h, e in runs]})
+    if runs and all(e for *_, e in runs):
+        raise AssertionError(f"every BECToken analysis handed off before {LOOP_HANDOFF_STATES} states, so none "
+                             f"was held to {EXPECTED_ISSUES['bectoken']}: {runs}")
 
 
 def run_host_half(dev, cfg, smi, budgets=(("becstress", 2, 60), ("bectoken", 3, 120)),
@@ -1151,9 +1200,10 @@ def run_host_half(dev, cfg, smi, budgets=(("becstress", 2, 60), ("bectoken", 3, 
             k5_from_sets += counts["K5"] - warm["launches"]["K5"]
             for k in e2e_counts:
                 e2e_counts[k] += counts[k]
+            expected, early = expected_issues("e2e", name, handoff.at)
             emit({"phase": "e2e", "contract": name, "tx": tx, "budget_s": budget,
-                  "device_engage_after_s": run_cfg.device_engage_after_s, "handoff": handoff.at, "issues": issues,
-                  "expected": EXPECTED_ISSUES[name], "wall_s": round(wall, 3),
+                  "device_engage_after_s": run_cfg.device_engage_after_s, "handoff": handoff.at,
+                  "handoff_before_loop": early, "issues": issues, "expected": expected, "wall_s": round(wall, 3),
                   "strategy_warmup_s": round(warm["s"], 3),
                   "device_rounds": strat.device_rounds, "fused_rounds": strat.fused_rounds,
                   "fused_syncs": strat.fused_syncs, "in_loop_unsat_kills": strat.in_loop_unsat_kills,
@@ -1167,8 +1217,8 @@ def run_host_half(dev, cfg, smi, budgets=(("becstress", 2, 60), ("bectoken", 3, 
                   "degraded_rounds": strat.degraded_rounds, "degraded_rounds_total": degraded,
                   "breaker": retry.BREAKER.state(), "breaker_trips": retry.BREAKER.trips,
                   "device_solve_failures": feas_failures[0], "gpu": smi})
-            if issues != EXPECTED_ISSUES[name]:
-                raise AssertionError(f"{name}: issues {issues}, expected {EXPECTED_ISSUES[name]}")
+            if issues != expected:
+                raise AssertionError(f"{name}: issues {issues}, expected {expected} (handoff {handoff.at})")
             if strat.device_rounds <= 0:
                 raise AssertionError(f"{name}: no device round")
             missing = [k for k in ("K1", "K4", "K6", "K7") if counts[k] - warm["launches"][k] <= 0]
@@ -1758,16 +1808,17 @@ def run_stats_and_sync(dev, cfg, smi, cli_budget=60, sync_budget=("bectoken", 3,
     strat = backend.find_tpu_strategy(sym.laser.strategy)
     slices = cat.DEVICE_SLICES_TOTAL.value() - slices0
     degraded = cat.DEGRADED_ROUNDS_TOTAL.value() - degraded0
+    expected, early = expected_issues("e2e_sync", name, handoff.at)
     emit({"phase": "e2e_sync", "contract": name, "tx": tx, "budget_s": budget, "handoff": handoff.at,
-          "issues": issues,
-          "expected": EXPECTED_ISSUES[name], "wall_s": round(wall, 3), "device_rounds": strat.device_rounds,
+          "handoff_before_loop": early, "issues": issues,
+          "expected": expected, "wall_s": round(wall, 3), "device_rounds": strat.device_rounds,
           "device_slices": slices, "fused_rounds": strat.fused_rounds,
           "device_steps_retired": strat.device_steps_retired, "device_wall_s": round(strat.device_wall_s, 3),
           "total_states": sym.laser.total_states, "launches": sync_launches,
           "degraded_rounds": strat.degraded_rounds, "degraded_rounds_total": degraded,
           "breaker": retry.BREAKER.state(), "gpu": smi})
-    if issues != EXPECTED_ISSUES[name]:
-        raise AssertionError(f"{name} (sync slices): issues {issues}, expected {EXPECTED_ISSUES[name]}")
+    if issues != expected:
+        raise AssertionError(f"{name} (sync slices): issues {issues}, expected {expected} (handoff {handoff.at})")
     if strat.device_rounds <= 0 or slices <= 0 or strat.fused_rounds:
         raise AssertionError(f"{name}: the sync slice loop ran no device slice")
     if strat.degraded_rounds or degraded or retry.BREAKER.state() != "closed":
@@ -1850,18 +1901,271 @@ def run_stats_and_sync(dev, cfg, smi, cli_budget=60, sync_budget=("bectoken", 3,
 LOOP_SRC = "here:\nJUMPDEST\nPUSH1 :here\nJUMP"
 
 
+def tensor_diff(a, b):
+    """0 where two tensors are equal, else their largest difference (at least 1)."""
+    import torch
+
+    if torch.equal(a, b):
+        return 0
+    return max(1, int((a.to(torch.int64) - b.to(torch.int64)).abs().max()))
+
+
+def batch_diff(a, b):
+    """(error, where) of the first plane where two batches differ, (0, None) where none does."""
+    from mythril_tpu_torch.laser.cuda import batch
+
+    for name, x, y in zip(batch.StateBatch._fields, a, b):
+        if not x.equal(y):
+            idx = (x != y).nonzero()[0].tolist()
+            return tensor_diff(x, y), f"{name}{idx}: kernel={x[tuple(idx)].item()} twin={y[tuple(idx)].item()}"
+    return 0, None
+
+
+def clone_batch(st):
+    from mythril_tpu_torch.laser.cuda import batch
+
+    return batch.StateBatch(*(x.clone() for x in st))
+
+
+def events_ms(dev, fn, prep=None, reps=20, spin=False):
+    """Mean time of ``fn(prep())`` over reps, CUDA events around the call,
+    the inputs made by ``prep`` outside the timed region; with ``spin``
+    each call is queued behind a spinning kernel, so the events time the
+    device's own work and not the host's launch. Host time on the CPU
+    (no device figure, not kept)."""
+    import torch
+
+    on_card = dev.type == "cuda"
+    fn(prep() if prep else None)
+    if on_card:
+        torch.cuda.synchronize()
+    total = 0.0
+    reps = reps if on_card else 1
+    for _ in range(reps):
+        a = prep() if prep else None
+        if not on_card:
+            t = time.perf_counter()
+            fn(a)
+            total += (time.perf_counter() - t) * 1e3
+            continue
+        torch.cuda.synchronize()
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        if spin:
+            torch.cuda._sleep(2_000_000)
+        e0.record()
+        fn(a)
+        e1.record()
+        torch.cuda.synchronize()
+        total += e0.elapsed_time(e1)
+    return total / reps
+
+
+STEAL_SHAPES = [(lanes, n) for lanes in (64, 160, 512, 1024) for n in (1, 2, 8, 64) if lanes % n == 0]
+STEAL_KINDS = ("skew", "capacity", "ragged", "idle", "all_running", "full_receivers")
+
+
+def tagged_batch(cfg, dev, n, running, halted=0):
+    """A batch at cfg whose rows carry their lane index, over n shards:
+    ``running[s]`` running lanes, then ``halted`` (an int, or one a
+    shard) halted ones, as a dense prefix of shard s."""
+    import torch
+
+    from mythril_tpu_torch.laser.cuda import batch
+
+    L = cfg.lanes
+    per = L // n
+    halted = [halted] * n if isinstance(halted, int) else halted
+    st = batch.empty_batch(cfg, device=dev)
+    alive = torch.zeros(L, dtype=torch.bool, device=dev)
+    status = torch.full((L,), batch.STOPPED, dtype=torch.int32, device=dev)
+    for s, (c, h) in enumerate(zip(running, halted)):
+        alive[s * per: s * per + c + h] = True
+        status[s * per: s * per + c] = batch.RUNNING
+    lane = torch.arange(L, dtype=torch.int32, device=dev)
+    stack = st.stack.clone()
+    stack[:, 0] = lane
+    visited = torch.zeros_like(st.visited)
+    visited[torch.arange(L, device=dev), lane.long() % cfg.code_len] = True
+    return st._replace(alive=alive, status=status, pc=lane + 100, steps=lane + 1000, gas_left=lane + 5000,
+                       static_pruned=torch.full_like(lane, 7), stack=stack, visited=visited)
+
+
+def steal_case(cfg, dev, lanes, n, kind, rng):
+    """The steal kernel's compare batches: ``skew`` (shards 0-1 full of
+    running lanes: the skew demos' steal), ``capacity`` (shards 0-1 half
+    running, every shard half halted), ``ragged`` (random running counts,
+    one halted lane each), ``idle`` (no lane running), ``all_running``,
+    ``full_receivers`` (shard 0 running, every other lane halted: the
+    deficit is capped to 0, so nothing moves whatever the spread)."""
+    per = lanes // n
+    first = lambda *c: (list(c) + [0] * n)[:n]  # noqa: E731
+    running, halted = {
+        "skew": (first(per, per), 0),
+        "capacity": (first(per // 2, per // 2), per // 2),
+        "ragged": ([int(rng.integers(0, per)) for _ in range(n)], 1),
+        "idle": ([0] * n, per // 2),
+        "all_running": ([per] * n, 0),
+        "full_receivers": (first(per), [0] + [per] * (n - 1)),
+    }[kind]
+    return tagged_batch(cfg._replace(lanes=lanes), dev, n, running, halted)
+
+
+def steal_uses_diff(dev, st, n):
+    """The steal kernel in each use on ``st`` against the twins: the
+    counts (occupancy_impl), the plan (steal_plan), the moves of the
+    twin's plan (steal_apply), and on the card the fused loop's steal
+    round from nonzero counters and a steal round of a stopped loop,
+    which must write nothing. Returns (plan error, move error, where,
+    the twin's plan, its steal decision)."""
+    import torch
+
+    from mythril_tpu_torch.laser.cuda import batch, kernels, mesh
+
+    pt = mesh.steal_plan_plain(st, n)
+    moved = int(pt.moved)
+    go = int(moved > 0 and int(pt.occ.max()) - int(pt.occ.min()) > 1)
+    moved_st = mesh.steal_apply_plain(st, pt, n)
+    errs10, where = [], []
+    errs10.append(tensor_diff(mesh.occupancy_impl(st, n, device=dev), mesh.occupancy_impl_plain(st, n)))
+    errs10 += [tensor_diff(a, b) for a, b in zip(mesh.steal_plan(st, n, device=dev), pt)]
+    err11, w = batch_diff(mesh.steal_apply(st, pt, n, device=dev), moved_st)
+    where.append(w and f"steal_apply {w}")
+    if dev.type == "cuda":
+        pattern = torch.tensor([-3, -5, 11, 13], dtype=torch.int32, device=dev)
+        s = clone_batch(st)
+        a = kernels.MeshArgs(s, n)
+        a.mctl.copy_(pattern)
+        mesh.steal_round(a)
+        want_mctl = torch.tensor([go, moved, 11 + go, 13 + go * moved], dtype=torch.int32, device=dev)
+        errs10 += [tensor_diff(a.export_.bool(), pt.export), tensor_diff(a.buf_pos, pt.buf_pos),
+                   tensor_diff(a.sh, torch.cat([pt.occ, pt.alive_c, pt.filled])), tensor_diff(a.mctl, want_mctl)]
+        e, w = batch_diff(s, moved_st if go else st)
+        err11 = max(err11, e)
+        where.append(w and f"steal_round {w}")
+        s = clone_batch(st)
+        a = kernels.MeshArgs(s, n, torch.tensor([3, 0, 4, 1], dtype=torch.int32, device=dev))
+        for t, v in ((a.export_, 0xA5), (a.buf_pos, -7), (a.sh, -9)):
+            t.fill_(v)
+        a.mctl.copy_(pattern)
+        mesh.steal_round(a)
+        errs10 += [int(not (a.export_ == 0xA5).all()), int(not (a.buf_pos == -7).all()),
+                   int(not (a.sh == -9).all()), tensor_diff(a.mctl, pattern)]
+        e, w = batch_diff(s, st)
+        err11 = max(err11, e)
+        where.append(w and f"stopped steal_round {w}")
+    return max(errs10), err11, [w for w in where if w], pt, go
+
+
+def compare_steal_kernel(dev, cfg):
+    """The steal kernel against the twins in each use (steal_uses_diff)
+    at 64, 160, 512 and 1024 lanes over 1, 2, 8 and 64 shards where they
+    divide, on each kind of steal_case batch at cfg's widths. Returns the
+    plan and move errors and the number of batches compared. Alone:
+
+        python3 -c 'import chip_smoke, torch; from mythril_tpu_torch.laser.cuda import batch;
+                    print(chip_smoke.compare_steal_kernel(torch.device("cuda"), batch.DEFAULT_BATCH_CFG))'
+    """
+    import numpy as np
+
+    rng = np.random.default_rng(20261018)
+    err10 = err11 = cases = steals = 0
+    for lanes, n in STEAL_SHAPES:
+        shape_err = [0, 0]
+        for kind in STEAL_KINDS:
+            st = steal_case(cfg, dev, lanes, n, kind, rng)
+            e10, e11, where, pt, go = steal_uses_diff(dev, st, n)
+            cases += 1
+            steals += go
+            shape_err = [max(shape_err[0], e10), max(shape_err[1], e11)]
+            if e10 or e11:
+                raise AssertionError(f"the steal kernel differs from the twins at {lanes} lanes over {n} shards "
+                                     f"({kind}): plan err {e10}, moves {where}, moved {int(pt.moved)}")
+        err10, err11 = max(err10, shape_err[0]), max(err11, shape_err[1])
+    emit({"phase": "compare", "kernel": "K10/K11 steal kernel", "shapes": STEAL_SHAPES, "kinds": list(STEAL_KINDS),
+          "batches": cases, "steal_rounds_that_moved": steals, "err": [err10, err11], "ok": not (err10 or err11)})
+    return err10, err11, cases
+
+
+def time_steal_kernel(dev, cfg, n, reps=20):
+    """The steal kernel's times at cfg over n shards, on the 96-lane steal
+    state (shards 0-1 full of running lanes) and on a gated no-steal state
+    (occupancy [per / 2] * (n - 1) + [per / 2 + 1]: moved 1, spread 1):
+    through mesh.steal_round and each standalone entry point (``ms``),
+    and each launch alone with its arguments built beforehand
+    (``launch_ms``; ``device_ms`` queued behind a spinning kernel, the
+    device's own time), CUDA events around the call, the inputs rebuilt
+    outside the timed region; with each use's bound (bytes). Returns
+    (times, plain plan ms, plain moves ms, the steal state's moved lanes
+    and row bytes)."""
+    import torch
+
+    from mythril_tpu_torch.laser.cuda import batch, kernels, mesh
+
+    on_card = dev.type == "cuda"
+    L = cfg.lanes
+    per = L // n
+    time_ms = functools.partial(events_ms, dev, reps=reps)
+
+    states = {"steal": tagged_batch(cfg, dev, n, ([per, per] + [0] * n)[:n]),
+              "no_steal": tagged_batch(cfg, dev, n, [per // 2] * (n - 1) + [per // 2 + 1])}
+    rb = sum(x[0].numel() * x.element_size() for x in states["steal"])
+    plan_bytes = L * (1 + 4) + L * (1 + 4) + 3 * n * 4 + 4 * 4
+    times = {}
+    for label, st in states.items():
+        pt = mesh.steal_plan_plain(st, n)
+        moved = int(pt.moved)
+        go = moved > 0 and int(pt.occ.max()) - int(pt.occ.min()) > 1
+        move_bytes = moved * (2 * rb + cfg.code_len + 1 + 4 + 4)
+
+        def args(flags_plan=False, s=st, pt=pt):
+            a = kernels.MeshArgs(clone_batch(s), n)
+            if flags_plan:
+                a.export_.copy_(pt.export.to(torch.uint8))
+                a.buf_pos.copy_(pt.buf_pos)
+                a.sh[n:2 * n].copy_(pt.alive_c)
+            return a
+
+        row = {"moved": moved, "steal": bool(go)}
+        uses = {
+            "steal_round": (lambda a: mesh.steal_round(a), args,
+                            lambda a: kernels.launch_mesh_steal(a, kernels.MESH_STEAL_ROUND), args,
+                            plan_bytes + (move_bytes if go else 0)),
+            "occupancy_impl": (lambda _: mesh.occupancy_impl(st, n, device=dev), None,
+                               lambda a: kernels.launch_mesh_steal(a, 0), args, L * (1 + 4) + 2 * n * 4),
+            "steal_plan": (lambda _: mesh.steal_plan(st, n, device=dev), None,
+                           lambda a: kernels.launch_mesh_steal(a, kernels.MESH_PLAN), args, plan_bytes),
+            "steal_apply": (lambda _: mesh.steal_apply(st, pt, n, device=dev), None,
+                            lambda a: kernels.launch_mesh_steal(a, kernels.MESH_MOVE),
+                            lambda: args(True), L * (1 + 4) + n * 4 + move_bytes),
+        }
+        for use, (fn, prep, launch, launch_prep, nbytes) in uses.items():
+            if not on_card and use == "steal_round":
+                continue
+            row[use] = {"ms": round(time_ms(fn, prep), 6),
+                        "launch_ms": round(time_ms(launch, launch_prep), 6) if on_card else None,
+                        "device_ms": round(time_ms(launch, launch_prep, spin=True), 6) if on_card else None,
+                        "bound_ms": round(nbytes / HBM_BYTES_PER_S * 1e3, 9)}
+        times[label] = row
+    ss = states["steal"]
+    pt = mesh.steal_plan_plain(ss, n)
+    plain10 = time_ms(lambda _: mesh.steal_plan_plain(ss, n), reps=5)
+    plain11 = time_ms(lambda _: mesh.steal_apply_plain(ss, pt, n), reps=5)
+    return times, plain10, plain11, int(pt.moved), rb
+
+
 def run_mesh(dev, cfg, smi, rounds=4, steps_per_round=256, n_shards=8, e2e=("bectoken", 3, 120)):
     """Phase 12, the mesh tiers on one card (n_shards lane blocks of one
-    batch): K10-K12 and the segmented K1/K4 against their twins, the
-    fused mesh super-round and one sync mesh round against the twins'
-    runs, the skew demos, BECToken through SymExecWrapper over the mesh,
-    and the times. Returns the kernels line's entries for K10-K12 and the
-    segmented K1/K4 errors."""
+    batch): the steal kernel (K10/K11) in each use, K12 and the segmented
+    K1/K4 against their twins, the fused mesh super-round and one sync
+    mesh round against the twins' runs, the skew demos, BECToken through
+    SymExecWrapper over the mesh, and the times. Returns the kernels
+    line's entries for K10-K12 and the segmented K1/K4 errors."""
     import numpy as np
     import torch
 
     from mythril_tpu_torch.disassembler.asm import assemble
-    from mythril_tpu_torch.laser.cuda import batch, engine, inloop_solve, kernels, megakernel, mesh
+    from mythril_tpu_torch.laser.cuda import _build, batch, engine, inloop_solve, kernels, megakernel, mesh
 
     on_card = dev.type == "cuda"
     L, n = cfg.lanes, n_shards
@@ -1870,21 +2174,6 @@ def run_mesh(dev, cfg, smi, rounds=4, steps_per_round=256, n_shards=8, e2e=("bec
     def sync():
         if on_card:
             torch.cuda.synchronize()
-
-    def diff(a, b):
-        if torch.equal(a, b):
-            return 0
-        return max(1, int((a.to(torch.int64) - b.to(torch.int64)).abs().max()))
-
-    def batch_diff(a, b):
-        for name, x, y in zip(batch.StateBatch._fields, a, b):
-            if not torch.equal(x, y):
-                idx = (x != y).nonzero()[0].tolist()
-                return diff(x, y), f"{name}{idx}: kernel={x[tuple(idx)].item()} twin={y[tuple(idx)].item()}"
-        return 0, None
-
-    def clone(st):
-        return batch.StateBatch(*(x.clone() for x in st))
 
     zero_counts, read_counts = launch_counters()
     max_err = {"K1": 0, "K4": 0, "K10": 0, "K11": 0, "K12": 0}
@@ -1906,35 +2195,12 @@ def run_mesh(dev, cfg, smi, rounds=4, steps_per_round=256, n_shards=8, e2e=("bec
             specs.append(dict(calldata=cd + bytes(rng.integers(0, 256, 64, dtype=np.uint8)), caller=0x1000 + i))
         return specs
 
-    def tagged(running_blocks, halted=0):
-        """A batch at cfg whose rows carry their lane index, with
-        ``running_blocks[s]`` running lanes (then ``halted`` halted ones)
-        as a dense prefix of shard s."""
-        st = batch.empty_batch(cfg, device=dev)
-        alive = torch.zeros(L, dtype=torch.bool, device=dev)
-        status = torch.full((L,), batch.STOPPED, dtype=torch.int32, device=dev)
-        for s, c in enumerate(running_blocks):
-            alive[s * per: s * per + c + halted] = True
-            status[s * per: s * per + c] = batch.RUNNING
-        lane = torch.arange(L, dtype=torch.int32, device=dev)
-        stack = st.stack.clone()
-        stack[:, 0] = lane
-        visited = torch.zeros_like(st.visited)
-        visited[torch.arange(L, device=dev), lane.long() % cfg.code_len] = True
-        return st._replace(alive=alive, status=status, pc=lane + 100, steps=lane + 1000, gas_left=lane + 5000,
-                           static_pruned=torch.full_like(lane, 7), stack=stack, visited=visited)
-
-    # ---- 12a. K10, K11, K12 alone; K1 and K4 with a shard count ------------
-    skew = [per, per] + [0] * (n - 2)  # shards 0-1 full of running lanes
-    cases = {"skew": tagged(skew), "capacity": tagged([per // 2, per // 2] + [0] * (n - 2), halted=per // 2),
-             "ragged": tagged([int(rng.integers(0, per)) for _ in range(n)], halted=1)}
+    # ---- 12a. the steal kernel (K10/K11) and K12 alone; K1 and K4 with a shard count
+    err10, err11, _cases = compare_steal_kernel(dev, cfg)
+    max_err["K10"], max_err["K11"] = max(max_err["K10"], err10), max(max_err["K11"], err11)
+    cases = {kind: steal_case(cfg, dev, L, n, kind, rng) for kind in ("skew", "capacity", "ragged")}
     for name, st in cases.items():
-        pk, pt = mesh.steal_plan(st, n, device=dev), mesh.steal_plan_plain(st, n)
-        err10 = max(diff(a, b) for a, b in zip(pk, pt))
-        occ_k = mesh.occupancy_impl(st, n, device=dev)
-        err10 = max(err10, diff(occ_k, mesh.occupancy_impl_plain(st, n)))
-        ak, at = mesh.steal_apply(st, pk, n, device=dev), mesh.steal_apply_plain(st, pt, n)
-        err11, where11 = batch_diff(ak, at)
+        err10, err11, where11, pt, _go = steal_uses_diff(dev, st, n)
         dk, dt = mesh.rebalance(st, n, device=dev), mesh.rebalance_plain(st, n)
         err12, where12 = batch_diff(dk, dt)
         max_err["K10"] = max(max_err["K10"], err10)
@@ -1964,7 +2230,7 @@ def run_mesh(dev, cfg, smi, rounds=4, steps_per_round=256, n_shards=8, e2e=("bec
     acc_t = torch.zeros(4, dtype=torch.int32, device=dev)
     pv_t = torch.zeros(cb_t.code.shape, dtype=torch.bool, device=dev)
     out_t = megakernel.round_epilogue_plain(cb_t, st_t, unsat, acc_t, pv_t, n)
-    st4 = clone(st_t)
+    st4 = clone_batch(st_t)
     acc_k, pv_k = torch.zeros_like(acc_t), torch.zeros_like(pv_t)
     ctl = torch.tensor([0, 1, 0, 0], dtype=torch.int32, device=dev)
     if on_card:
@@ -1973,7 +2239,7 @@ def run_mesh(dev, cfg, smi, rounds=4, steps_per_round=256, n_shards=8, e2e=("bec
     else:
         st4 = megakernel.round_epilogue_plain(cb_t, st4, unsat, acc_k, pv_k, n)
     err, where = batch_diff(st4, out_t)
-    err = max(err, diff(acc_k, acc_t), diff(pv_k, pv_t))
+    err = max(err, tensor_diff(acc_k, acc_t), tensor_diff(pv_k, pv_t))
     max_err["K4"] = max(max_err["K4"], err)
     emit({"phase": "compare", "kernel": "K4 sharded", "shards": n, "acc": acc_t.tolist(), "ok": not err})
     if err:
@@ -2017,8 +2283,11 @@ def run_mesh(dev, cfg, smi, rounds=4, steps_per_round=256, n_shards=8, e2e=("bec
         if not ok:
             raise AssertionError(f"{name}: the fused mesh super-round differs from the twin: {where} "
                                  f"info {out.info.tolist()} vs {ot.info.tolist()}")
-        if on_card and min(counts[k] for k in ("K1", "K3", "K4", "K10", "K11")) <= 0:
+        if on_card and min(counts[k] for k in ("K1", "K3", "K4", "K10", "K11", "mesh_steal")) <= 0:
             raise AssertionError(f"{name}: a kernel of the fused mesh loop never launched: {counts}")
+        # the round's steal is one launch of the steal kernel (plan, decision, moves), not K10 then K11
+        if on_card and not counts["mesh_steal"] == counts["K10"] == counts["K11"] == rounds:
+            raise AssertionError(f"{name}: the fused mesh loop did not make one steal launch a round: {counts}")
         if on_card and (counts["K1"] != rounds or counts["K2"] or counts["K8"]
                         or counts["K1_steps"] != rounds * steps_per_round
                         or counts["K1_stats"] != (rounds if with_stats else 0)):
@@ -2035,16 +2304,18 @@ def run_mesh(dev, cfg, smi, rounds=4, steps_per_round=256, n_shards=8, e2e=("bec
     sync_counts = read_counts()
     out_t, occ_t = mesh.round_impl_plain(cb_r, st_r, steps_per_round, True, n)
     err, where = batch_diff(out_k, out_t)
-    err = max(err, diff(occ_k, occ_t))
+    err = max(err, tensor_diff(occ_k, occ_t))
     max_err["K12"] = max(max_err["K12"], err)
     emit({"phase": "mesh_sync_vs_twin", "contract": "bectoken", "steps": steps_per_round, "occ": occ_t.tolist(),
           "launches": sync_counts, "ok": not err})
     if err:
         raise AssertionError(f"sharded_round differs from the twin: {where}")
-    # the round's slice is one K1 launch (no K9), then the deal and the occupancy
+    # the round's slice is one K1 launch (no K9), then the deal and the
+    # occupancy: one steal-kernel launch that counts and moves nothing
     if on_card and (min(sync_counts[k] for k in ("K1", "K10", "K12")) <= 0 or sync_counts["K1"] != 1
-                    or sync_counts["K9"]):
-        raise AssertionError(f"the sync mesh round did not launch one K1, K10 and K12: {sync_counts}")
+                    or sync_counts["K9"] or sync_counts["mesh_steal"] != 1 or sync_counts["K11"]):
+        raise AssertionError(f"the sync mesh round did not launch one K1, one counting steal kernel and K12: "
+                             f"{sync_counts}")
 
     # ---- 12d. the skew demos ------------------------------------------------
     loop_code = assemble(LOOP_SRC)
@@ -2060,7 +2331,7 @@ def run_mesh(dev, cfg, smi, rounds=4, steps_per_round=256, n_shards=8, e2e=("bec
         steps = int(out_d.st.steps.sum())
         ot = megakernel.run_fused_mesh_plain(cb_d, st_d, n, 4, 64, True, pool0)
         err, where = batch_diff(out_d.st, ot.st)
-        err = max(err, diff(out_d.info, ot.info))
+        err = max(err, tensor_diff(out_d.info, ot.info))
         max_err["K11"] = max(max_err["K11"], err)
         if err:
             raise AssertionError(f"skew demo at {lanes_} lanes differs from the twin: {where}")
@@ -2070,7 +2341,7 @@ def run_mesh(dev, cfg, smi, rounds=4, steps_per_round=256, n_shards=8, e2e=("bec
                          "steal_lanes": stats.steal_lanes, "occupancy": list(stats.occupancy),
                          "spread": max(stats.occupancy) - min(stats.occupancy), "steps": steps,
                          "steps_expected": spinning * 4 * 64,
-                         "k11_launches": read_counts()["K11"] - before["K11"]}
+                         "steal_launches": read_counts()["mesh_steal"] - before["mesh_steal"]}
         emit({"phase": "mesh_skew_demo", "lanes": lanes_, "shards": n, **demos[lanes_]})
         if (stats.steal_events != 1 or stats.steal_lanes != want_moved or list(stats.occupancy) != want_occ
                 or steps != spinning * 4 * 64):
@@ -2081,60 +2352,19 @@ def run_mesh(dev, cfg, smi, rounds=4, steps_per_round=256, n_shards=8, e2e=("bec
     e2e_counts = run_mesh_e2e(dev, cfg, smi, n, e2e)
 
     # ---- 12f. times ------------------------------------------------------------
-    def time_ms(fn, prep=None, reps=20):
-        """Mean device time of fn over reps (CUDA events), inputs rebuilt
-        by ``prep`` outside the timed region; host time on the CPU (not
-        kept)."""
-        fn(prep() if prep else None)
-        sync()
-        total = 0.0
-        reps = reps if on_card else 1
-        for _ in range(reps):
-            a = prep() if prep else None
-            sync()
-            if on_card:
-                e0 = torch.cuda.Event(enable_timing=True)
-                e1 = torch.cuda.Event(enable_timing=True)
-                e0.record()
-                fn(a)
-                e1.record()
-                torch.cuda.synchronize()
-                total += e0.elapsed_time(e1)
-            else:
-                t = time.perf_counter()
-                fn(a)
-                total += (time.perf_counter() - t) * 1e3
-        return total / reps
-
-    def row_bytes(st):
-        return sum(x[0].numel() * x.element_size() for x in st)
+    time_ms = functools.partial(events_ms, dev)
 
     ss = steal_state
-    margs = kernels.MeshArgs(ss, n) if on_card else None
-    if on_card:
-        ms10 = time_ms(lambda _: kernels.launch_mesh_plan(margs, kernels.MESH_PLAN))
-    else:
-        ms10 = time_ms(lambda _: mesh.steal_plan(ss, n, device=dev))
-    plain10 = time_ms(lambda _: mesh.steal_plan_plain(ss, n), reps=5)
-    plan = mesh.steal_plan_plain(ss, n)
-    moved = int(plan.moved)
-    if on_card:
-        kernels.launch_mesh_plan(margs, kernels.MESH_PLAN)
-
-        def prep11():
-            s = clone(ss)
-            a = kernels.MeshArgs(s, n)
-            for dst, src in ((a.export_, margs.export_), (a.buf_pos, margs.buf_pos), (a.sh, margs.sh)):
-                dst.copy_(src)
-            return a
-
-        ms11 = time_ms(lambda a: kernels.launch_mesh_steal(a, gated=False), prep11)
-    else:
-        ms11 = time_ms(lambda s: mesh.steal_apply(s, plan, n, device=dev), lambda: clone(ss))
-    plain11 = time_ms(lambda s: mesh.steal_apply_plain(s, plan, n), lambda: clone(ss), reps=5)
+    steal_times, plain10, plain11, moved, rb = time_steal_kernel(dev, cfg, n)
+    mesh_log = os.path.join(_build.BUILD_DIR, "mesh.log")
+    ptxas = [ln.strip() for ln in open(mesh_log) if any(k in ln for k in ("entry function", "registers", "spill"))
+             ] if os.path.exists(mesh_log) else []
+    emit({"phase": "timing_steal_kernel", "gpu": smi, "lanes": L, "shards": n, "row_bytes": rb,
+          "times": steal_times, "plain_ms": {"steal_plan": plain10, "steal_apply": plain11},
+          "resources": kernels.mesh_steal_info(dev) if on_card else None, "ptxas_mesh_cu": ptxas})
     if on_card:
         def prep12():
-            return (clone(ss), batch.StateBatch(*(torch.empty_like(x) for x in ss)),
+            return (clone_batch(ss), batch.StateBatch(*(torch.empty_like(x) for x in ss)),
                     torch.empty(L, dtype=torch.int32, device=dev))
 
         ms12 = time_ms(lambda a: kernels.launch_mesh_deal(a[0], a[1], n, a[2]), prep12)
@@ -2143,9 +2373,6 @@ def run_mesh(dev, cfg, smi, rounds=4, steps_per_round=256, n_shards=8, e2e=("bec
     plain12 = time_ms(lambda _: mesh.rebalance_plain(ss, n), reps=5)
     order = mesh.deal_order_plain(ss, n)
     dealt = int((order != torch.arange(L, device=dev)).sum())
-    rb = row_bytes(ss)
-    bytes10 = L * (1 + 4) + L * (1 + 4) + 3 * n * 4 + 4 * 4
-    bytes11 = L * 1 + moved * (4 + 2 * rb + cfg.code_len + 1 + 4 + 4)
     bytes12 = L * (1 + 4) + dealt * 2 * rb
 
     cb_w, st_w = results["becstress"][0], results["becstress"][1]
@@ -2175,37 +2402,52 @@ def run_mesh(dev, cfg, smi, rounds=4, steps_per_round=256, n_shards=8, e2e=("bec
     ):
         super_rounds[label] = [wall_of(fn), wall_of(fn)]
     emit({"phase": "timing_mesh", "gpu": smi, "shards": n, "steal_state": {"moved": moved, "dealt": dealt},
-          "super_round_ms_becstress": super_rounds, "K10_ms": ms10, "K11_ms": ms11, "K12_ms": ms12})
+          "super_round_ms_becstress": super_rounds, "K12_ms": ms12})
 
-    def entry(kid, name, source, replaces, launches, ms, plain, nbytes, by_path):
+    def entry(kid, name, source, replaces, launches, ms, plain, bound, by_path, launch_ms=None):
         return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
                 "launches": launches, "launches_by_path": by_path, "max_abs_err": max_err[kid],
-                "ms": round(ms, 6), "plain_ms": round(plain, 6),
-                "bound_ms": round(nbytes / HBM_BYTES_PER_S * 1e3, 9), "bound_by": "bytes", "library_ms": None}
+                "ms": round(ms, 6), "launch_ms": launch_ms, "plain_ms": round(plain, 6),
+                "bound_ms": round(bound, 9), "bound_by": "bytes", "library_ms": None}
 
+    # K10 and K11 are one kernel: K10's row is its plan (steal_plan on the
+    # steal state), K11's its moves as the fused loop launches them (a
+    # steal round that moves the steal state's lanes); each row's
+    # launches count the launches that did its function
     by10 = {"e2e_mesh": e2e_counts["K10"], "fused_mesh": fused_mesh_counts["K10"], "sync_mesh": sync_counts["K10"]}
     by11 = {"e2e_mesh": e2e_counts["K11"], "fused_mesh": fused_mesh_counts["K11"],
-            "skew_demos": sum(d["k11_launches"] for d in demos.values())}
+            "skew_demos": sum(d["steal_launches"] for d in demos.values())}
     by12 = {"sync_mesh": sync_counts["K12"], "e2e_mesh": e2e_counts["K12"]}
+    kernel_launches = {"e2e_mesh": e2e_counts["mesh_steal"], "fused_mesh": fused_mesh_counts["mesh_steal"],
+                       "sync_mesh": sync_counts["mesh_steal"]}
+    round_ms = {label: row.get("steal_round", {}).get("ms") for label, row in steal_times.items()}
+    sp, sr = steal_times["steal"]["steal_plan"], steal_times["steal"].get("steal_round", {})
     return [
-        entry("K10", "K10 mesh_plan", "mythril_tpu_torch/csrc/mesh.cu",
-              "mythril_tpu/laser/tpu/mesh.py:127", e2e_counts["K10"], ms10, plain10, bytes10, by10),
-        entry("K11", "K11 mesh_steal", "mythril_tpu_torch/csrc/mesh.cu",
-              "mythril_tpu/laser/tpu/mesh.py:178", e2e_counts["K11"], ms11, plain11, bytes11, by11),
+        dict(entry("K10", "K10 mesh_steal (counts, plan)", "mythril_tpu_torch/csrc/mesh.cu",
+                   "mythril_tpu/laser/tpu/mesh.py:127", e2e_counts["K10"], sp["ms"], plain10, sp["bound_ms"], by10,
+                   sp["launch_ms"]), steal_round_ms=round_ms, steal_kernel_launches=kernel_launches),
+        dict(entry("K11", "K11 mesh_steal (moves)", "mythril_tpu_torch/csrc/mesh.cu",
+                   "mythril_tpu/laser/tpu/mesh.py:178", e2e_counts["K11"], sr.get("ms", 0.0), plain11,
+                   sr.get("bound_ms", 0.0), by11, sr.get("launch_ms")),
+             steal_round_ms=round_ms, steal_kernel_launches=kernel_launches, moved=moved),
         entry("K12", "K12 mesh_deal", "mythril_tpu_torch/csrc/mesh.cu",
-              "mythril_tpu/laser/tpu/mesh.py:83", sync_counts["K12"], ms12, plain12, bytes12, by12),
+              "mythril_tpu/laser/tpu/mesh.py:83", sync_counts["K12"], ms12, plain12,
+              bytes12 / HBM_BYTES_PER_S * 1e3, by12),
     ], {"K1": max_err["K1"], "K4": max_err["K4"]}
 
 def launch_counters():
     """(zero_counts, read_counts) over the launch counts of K1-K12 (and of
-    K1's steps and stats instance)."""
+    K1's steps and stats instance; K10 and K11 count the steal kernel's
+    launches that counted or planned, and that moved or decided whether
+    to, ``mesh_steal`` all its launches)."""
     from mythril_tpu_torch.laser.cuda import engine, inloop_solve, keccak, megakernel, mesh, solver, transfer
 
     counters = {"K1": (engine, "launches"), "K1_steps": (engine, "steps_run"), "K1_stats": (engine, "stats_launches"),
                 "K2": (keccak, "launches"), "K3": (inloop_solve, "launches"), "K4": (megakernel, "launches"),
                 "K5": (solver, "launches"), "K6": (transfer, "unpack_launches"), "K7": (transfer, "pack_launches"),
                 "K8": (engine, "hist_launches"), "K9": (engine, "slice_launches"),
-                "K10": (mesh, "plan_launches"), "K11": (mesh, "steal_launches"), "K12": (mesh, "deal_launches")}
+                "K10": (mesh, "plan_launches"), "K11": (mesh, "steal_launches"), "K12": (mesh, "deal_launches"),
+                "mesh_steal": (mesh, "launches")}
 
     def zero_counts():
         for mod, attr in counters.values():
@@ -2323,9 +2565,10 @@ def run_mesh_e2e(dev, cfg, smi, n=8, e2e=("bectoken", 3, 120)):
     gauges = {str(s): cat.MESH_FRONTIER_OCCUPANCY.value(str(s)) for s in range(n)}
     phases = {ph: [cat.ROUND_PHASE_S.percentile(50, ph), cat.ROUND_PHASE_S.count(ph)]
               for ph in ("host_exec", "solve", "pack", "lift", "triage", "device_round")}
+    expected, early = expected_issues("e2e_mesh", name, handoff.at)
     emit({"phase": "e2e_mesh", "contract": name, "tx": tx, "budget_s": budget, "shards": n,
-          "device_engage_after_s": run_cfg.device_engage_after_s, "handoff": handoff.at, "issues": issues,
-          "expected": EXPECTED_ISSUES[name], "wall_s": round(wall, 3),
+          "device_engage_after_s": run_cfg.device_engage_after_s, "handoff": handoff.at,
+          "handoff_before_loop": early, "issues": issues, "expected": expected, "wall_s": round(wall, 3),
           "strategy_warmup_s": round(warm_s[0], 3),
           "first_upload_s": round(uploads[0], 3) if uploads else None,
           "upload_s": [round(u, 1) for u in uploads], "device_rounds": strat.device_rounds,
@@ -2338,15 +2581,21 @@ def run_mesh_e2e(dev, cfg, smi, n=8, e2e=("bectoken", 3, 120)):
           "occupancy_gauges": gauges, "round_phase_p50_s_and_count": phases, "launches": e2e_counts,
           "degraded_rounds": strat.degraded_rounds,
           "degraded_rounds_total": degraded, "breaker": retry.BREAKER.state(), "gpu": smi})
-    if issues != EXPECTED_ISSUES[name]:
-        raise AssertionError(f"{name} over the mesh: issues {issues}, expected {EXPECTED_ISSUES[name]}")
+    if issues != expected:
+        raise AssertionError(f"{name} over the mesh: issues {issues}, expected {expected} (handoff {handoff.at})")
     if strat.device_rounds <= 0 or strat.fused_rounds <= 0 or len(strat.mesh_occupancy) != n:
         raise AssertionError(f"{name}: no fused mesh round ran")
     if strat.degraded_rounds or degraded or retry.BREAKER.state() != "closed":
         raise AssertionError(f"{name}: a round degraded over the mesh")
-    missing = [k for k in ("K1", "K4", "K6", "K7", "K10", "K11") if e2e_counts[k] <= 0]
+    missing = [k for k in ("K1", "K4", "K6", "K7", "K10", "K11", "mesh_steal") if e2e_counts[k] <= 0]
     if on_card and missing:
         raise AssertionError(f"kernels the mesh analysis never launched: {missing}")
+    # one steal launch a fused mesh round (a round's two K4 launches, the
+    # epilogue and the compaction after the steal; the strategy's warmup
+    # adds a K1 launch of its own), K10 and K11 not launched apart
+    if on_card and not (e2e_counts["mesh_steal"] == e2e_counts["K10"] == e2e_counts["K11"]
+                        and e2e_counts["K4"] == 2 * e2e_counts["mesh_steal"]):
+        raise AssertionError(f"the mesh analysis did not make one steal launch a round: {e2e_counts}")
     return e2e_counts
 
 

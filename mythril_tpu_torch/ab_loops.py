@@ -10,18 +10,31 @@ through that checkout's own entry points:
 - one 512-step sync slice on BECToken, ``engine.run_with_stats`` and
   ``engine.run``;
 - one sync mesh round, ``mesh.round_impl`` (256 steps, the deal, 8
-  shards, every seed in shard 0), on BECToken.
+  shards, every seed in shard 0), on BECToken;
+- the fused mesh super-round, ``megakernel.run_fused_mesh`` (4 rounds x
+  256 steps over 8 shards, screen and stats on, every seed in shard 0),
+  on becstress, as ``chip_smoke.py``'s phase 12 runs it;
+- one ``mesh.steal_round`` (the fused mesh loop's work-steal) over 8
+  shards at ``DEFAULT_BATCH_CFG``, on the 96-lane steal state (shards 0-1
+  full of running lanes) and on a gated no-steal state (moved 1, spread
+  1), each call on a fresh copy made outside the timed region.
 
 Each item is called once to warm up, then ``--reps`` times: ``wall_ms``
 is the host clock from the call to the end of a ``synchronize()`` after
 it, ``enqueue_ms`` the host clock until the call returns (the card may
-still be running). ``launches`` are the K1 launches (and of those, the
-ones with the histogram), K8 and K9 launches of one call, read from the
-checkout's counters (null where a checkout has no such counter). Every
+still be running), ``device_ms`` the CUDA events recorded around the
+call on its stream (for the steal rounds also ``spin_device_ms``, the
+same queued behind a spinning kernel: the device's own time).
+``launches`` are the K1 launches (and of those, the
+ones with the histogram), K8 and K9 launches and the mesh kernels'
+counts (``K10``/``K11``: the launches that planned and that moved, or
+decided whether to; ``mesh_steal``: launches of the one steal kernel)
+of one call, read from the checkout's counters (null where a checkout
+has no such counter). Every
 item's output (every plane, and the histogram) is hashed; ``main``
 fails unless all runs of both checkouts agree. One JSON line per run,
 with the card's name and power limit and the ptxas lines of
-``step.cu``. The entry points used are the ones both sides of the
+``step.cu`` and ``mesh.cu``. The entry points used are the ones both sides of the
 change have. Run it from a directory that holds both checkouts, on a
 machine with the card, e.g.
 
@@ -40,7 +53,7 @@ sys.path.insert(0, ".")
 import numpy as np, torch
 import chip_smoke
 from mythril_tpu_torch.disassembler.asm import assemble
-from mythril_tpu_torch.laser.cuda import _build, batch, engine, inloop_solve, megakernel, mesh
+from mythril_tpu_torch.laser.cuda import _build, batch, engine, inloop_solve, kernels, megakernel, mesh
 
 reps, seed = int(sys.argv[1]), int(sys.argv[2])
 t0 = time.time()
@@ -67,13 +80,15 @@ def bank_for(code):
 inputs = {}
 for name, src in (("becstress", chip_smoke.STRESS_SRC), ("bectoken", open("bench_contracts/bectoken.asm").read())):
     inputs[name] = (bank_for(assemble(src)), batch.build_batch(cfg, seeds(8, 8), device=dev))
-COUNTERS = {"K1": "launches", "K1_stats": "stats_launches", "K8": "hist_launches", "K9": "slice_launches"}
+COUNTERS = {"K1": (engine, "launches"), "K1_stats": (engine, "stats_launches"), "K8": (engine, "hist_launches"),
+            "K9": (engine, "slice_launches"), "K10": (mesh, "plan_launches"), "K11": (mesh, "steal_launches"),
+            "mesh_steal": (mesh, "launches")}
 
 
 def zero_counts():
-    for attr in COUNTERS.values():
-        if hasattr(engine, attr):
-            setattr(engine, attr, 0)
+    for mod, attr in COUNTERS.values():
+        if hasattr(mod, attr):
+            setattr(mod, attr, 0)
 
 
 def digest(tensors):
@@ -83,22 +98,38 @@ def digest(tensors):
     return h.hexdigest()[:16]
 
 
-def measure(fn):
-    out = fn()  # warm-up; its output is the one hashed
+def measure(fn, prep=None, spin=False):
+    """``fn(prep())`` timed, ``prep`` (inputs made anew) outside the timed
+    region; with ``spin`` also ``spin_device_ms``, the events around the
+    call queued behind a spinning kernel (the device's own time)."""
+    out = fn(prep() if prep else None)  # warm-up; its output is the one hashed
     torch.cuda.synchronize()
-    walls, enqs = [], []
-    for _ in range(reps):
+    walls, enqs, devs, spun = [], [], [], []
+    for k in range(2 * reps if spin else reps):
+        a = prep() if prep else None
         torch.cuda.synchronize()
         zero_counts()
+        e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        if k >= reps:
+            torch.cuda._sleep(2_000_000)
         t0 = time.perf_counter()
-        fn()
+        e0.record()
+        fn(a)
+        e1.record()
         t1 = time.perf_counter()
         torch.cuda.synchronize()
+        if k >= reps:
+            spun.append(round(e0.elapsed_time(e1), 4))
+            continue
         walls.append(round((time.perf_counter() - t0) * 1e3, 3))
         enqs.append(round((t1 - t0) * 1e3, 3))
-    return {"wall_ms": walls, "enqueue_ms": enqs, "wall_ms_median": statistics.median(walls),
-            "enqueue_ms_median": statistics.median(enqs),
-            "launches": {k: getattr(engine, a, None) for k, a in COUNTERS.items()}, "digest": digest(out)}
+        devs.append(round(e0.elapsed_time(e1), 4))
+    rec = {"wall_ms": walls, "enqueue_ms": enqs, "device_ms": devs, "wall_ms_median": statistics.median(walls),
+           "enqueue_ms_median": statistics.median(enqs), "device_ms_median": statistics.median(devs),
+           "launches": {k: getattr(m, a, None) for k, (m, a) in COUNTERS.items()}, "digest": digest(out)}
+    if spin:
+        rec.update(spin_device_ms=spun, spin_device_ms_median=statistics.median(spun))
+    return rec
 
 
 pool = inloop_solve.empty_pool(dev)
@@ -120,16 +151,60 @@ def mesh_round(cb, st):
     return (*out, occ)
 
 
+def mesh_super_round(cb, st):
+    fo = megakernel.run_fused_mesh(mesh.make_mesh(8, device=dev), cb, None, st, max_rounds=4, steps_per_round=256,
+                                   with_stats=True, with_solve=True, pool=pool)
+    return (*fo.st, fo.info, fo.pruned_visited, fo.hist)
+
+
+def steal_state(running):
+    """A batch at cfg over 8 shards whose rows carry their lane index:
+    ``running[s]`` running lanes as a dense prefix of shard s."""
+    per = cfg.lanes // 8
+    st = batch.empty_batch(cfg, device=dev)
+    lane = torch.arange(cfg.lanes, dtype=torch.int32, device=dev)
+    count = torch.tensor(running, dtype=torch.int32, device=dev).repeat_interleave(per)
+    alive = lane % per < count
+    visited = torch.zeros_like(st.visited)
+    visited[lane.long(), lane.long() % cfg.code_len] = True
+    stack = st.stack.clone()
+    stack[:, 0] = lane
+    return st._replace(alive=alive, status=torch.where(alive, batch.RUNNING, batch.STOPPED).to(torch.int32),
+                       pc=lane + 100, steps=lane + 1000, static_pruned=torch.full_like(lane, 7), stack=stack,
+                       visited=visited)
+
+
+def steal_args(st):
+    """The inputs of one steal_round: a fresh copy of ``st`` and the loop's arguments on it."""
+    def prep():
+        s = batch.StateBatch(*(x.clone() for x in st))
+        return s, kernels.MeshArgs(s, 8)
+    return prep
+
+
+def steal_round(sa):
+    s, a = sa
+    mesh.steal_round(a)
+    return (*s, a.export_, a.buf_pos, a.sh, a.mctl)
+
+
 items = {}
 for name, (cb, st) in inputs.items():
     for stats in (False, True):
-        items[f"super_round/{name}/stats_{'on' if stats else 'off'}"] = measure(lambda: super_round(cb, st, stats))
+        items[f"super_round/{name}/stats_{'on' if stats else 'off'}"] = measure(lambda _: super_round(cb, st, stats))
 cb, st = inputs["bectoken"]
-items["slice_512/bectoken/stats_on"] = measure(lambda: slice_with_stats(cb, st))
-items["slice_512/bectoken/stats_off"] = measure(lambda: tuple(engine.run(cb, None, st, max_steps=512, device=dev)))
-items["mesh_round/bectoken/8_shards"] = measure(lambda: mesh_round(cb, st))
-log = os.path.join(_build.BUILD_DIR, "step.log")
-ptxas = [ln.strip() for ln in open(log) if "registers" in ln or "spill" in ln] if os.path.exists(log) else []
+items["slice_512/bectoken/stats_on"] = measure(lambda _: slice_with_stats(cb, st))
+items["slice_512/bectoken/stats_off"] = measure(lambda _: tuple(engine.run(cb, None, st, max_steps=512, device=dev)))
+items["mesh_round/bectoken/8_shards"] = measure(lambda _: mesh_round(cb, st))
+cb, st = inputs["becstress"]
+items["mesh_super_round/becstress/stats_on"] = measure(lambda _: mesh_super_round(cb, st))
+per = cfg.lanes // 8
+for label, running in (("steal_96", [per, per] + [0] * 6), ("no_steal", [per // 2] * 7 + [per // 2 + 1])):
+    items[f"steal_round/{label}"] = measure(steal_round, steal_args(steal_state(running)), spin=True)
+ptxas = {}
+for src in ("step", "mesh"):
+    log = os.path.join(_build.BUILD_DIR, f"{src}.log")
+    ptxas[src] = [ln.strip() for ln in open(log) if "registers" in ln or "spill" in ln] if os.path.exists(log) else []
 smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                      capture_output=True, text=True).stdout.strip()
 print(json.dumps({"gpu": smi, "build_s": round(build_s, 3), "reps": reps, "items": items, "ptxas": ptxas}))

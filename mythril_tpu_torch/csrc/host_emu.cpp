@@ -268,34 +268,57 @@ int emu_slice_ctl(const uint8_t* alive, const int32_t* status, int L, int32_t* c
   return 0;
 }
 
-// K10: counts per shard (thread per shard), then the plan
-int emu_mesh_plan(const Planes* Pp, int n, int flags, uint8_t* export_, int32_t* buf_pos,
-                  int32_t* sh, int32_t* mctl, const int32_t* ctl) {
+// K10/K11 (mesh.cu): one launch of nblocks blocks of nthreads threads,
+// each block's parts run thread by thread between its barriers (warp 0's
+// collective steps over the arrays, mesh.cuh), in either order; a block's
+// shared memory is filled with a pattern first, so a read of an entry no
+// part wrote shows. A launch that plans and moves meets at the grid
+// barrier: every block plans before any block moves. A launch that moves
+// from a given plan has none, so each block's moves run right after its
+// own plan, before the next block plans.
+int emu_mesh_steal(const Planes* Pp, int n, int flags, uint8_t* export_, int32_t* buf_pos, int32_t* sh,
+                   int32_t* mctl, const int32_t* ctl, int nblocks, int nthreads, int reverse) {
   const Planes& P = *Pp;
-  if (n < 1 || n > MESH_MAX_SHARDS || P.L % n != 0) return 2;
+  const int L = P.L;
+  if (n < 1 || n > MESH_MAX_SHARDS || L < 1 || L % n != 0) return 2;
+  if (nblocks < 1 || nthreads < L || nthreads % 32 || nthreads > MESH_MAX_LANES) return 3;
   if (ctl && !ctl[1]) return 0;
-  int32_t sur[MESH_MAX_SHARDS], dbase[MESH_MAX_SHARDS], rbase[MESH_MAX_SHARDS],
-      rend[MESH_MAX_SHARDS];
-  const int per = P.L / n;
-  for (int s = 0; s < n; ++s) mesh_count_shard(P, per, s, n, sh);
-  if (!(flags & MESH_PLAN)) return 0;
-  int moved = mesh_plan_scalars(per, n, sh, sur, dbase, rbase, rend);
-  mesh_commit(sh, n, moved, flags, mctl);
-  for (int s = 0; s < n; ++s)
-    mesh_plan_shard(P, per, n, s, sh, sur, dbase, rbase, rend, moved, export_, buf_pos);
-  return 0;
-}
-
-// K11: every exported lane's move
-int emu_mesh_steal(const Planes* Pp, int n, const uint8_t* export_, const int32_t* buf_pos,
-                   const int32_t* sh, const int32_t* ctl, const int32_t* gate) {
-  const Planes& P = *Pp;
-  if (n < 1 || n > MESH_MAX_SHARDS || P.L % n != 0) return 2;
-  if ((ctl && !ctl[1]) || (gate && !gate[0])) return 0;
-  for (int l = 0; l < P.L; ++l) {
-    if (!export_[l]) continue;
-    copy_row_part(P, P, l, mesh_target(sh, P.L / n, n, buf_pos[l]), 0, 1);
-    mesh_kill_part(P, l, 0, 1);
+  std::vector<MeshShared> ms(nblocks);
+  auto plan = [&](int b) {
+    MeshShared& m = ms[b];
+    for (int i = 0; i < (int)sizeof(MeshShared); ++i) ((uint8_t*)&m)[i] = (uint8_t)(0xA5 ^ i);
+    for (int w = 0; w < MESH_MAX_WARPS; ++w) m.ballot[w][0] = m.ballot[w][1] = 0;  // the ballots' OR below
+    // (a)
+    each(nthreads, reverse, [&](int t) {
+      mesh_unit_fields(P, m, t, nthreads);
+      const uint8_t bits = mesh_lane_bits(P, export_, flags, t);
+      m.ballot[t >> 5][0] |= (uint32_t)(bits & 1) << (t & 31);
+      m.ballot[t >> 5][1] |= (uint32_t)((bits >> 1) & 1) << (t & 31);
+    });
+    // (b)
+    mesh_warp_counts(m, nthreads >> 5);
+    mesh_units_prefix(m);
+    each(32, reverse, [&](int j) { mesh_shard_pair(m, L, n, j); });
+    mesh_warp_scans(m);
+    each(32, reverse, [&](int j) { mesh_shard_bases(m, L, n, flags, j); });
+    // (c)
+    each(nthreads, reverse,
+         [&](int t) { mesh_lane_plan(m, L, n, flags, b == 0, export_, buf_pos, sh, mctl, t); });
+  };
+  auto moves = [&](int b) {  // (d)
+    if (!ms[b].nmove) return;
+    each(nthreads, reverse, [&](int t) {
+      mesh_move_units(ms[b], (uint32_t)(b * nthreads + t), (uint32_t)(nblocks * nthreads));
+    });
+  };
+  if (flags & MESH_PLAN) {
+    each(nblocks, reverse, plan);
+    each(nblocks, reverse, moves);
+  } else {
+    each(nblocks, reverse, [&](int b) {
+      plan(b);
+      moves(b);
+    });
   }
   return 0;
 }

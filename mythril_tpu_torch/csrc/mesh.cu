@@ -1,50 +1,110 @@
-// K10 mesh_plan, K11 mesh_steal, K12 mesh_deal: the mesh tiers on one
-// card (replace mythril_tpu/laser/tpu/mesh.py:127 steal_plan with :237
-// occupancy_impl, :178 steal_apply, and :83 rebalance). The mesh is n
-// contiguous lane blocks of one batch (mesh.cuh).
+// K10/K11 mesh_steal and K12 mesh_deal: the mesh tiers on one card.
+// The mesh is n contiguous lane blocks of one batch (mesh.cuh).
 //
-// K10: one block. One thread per shard counts its block, thread 0 plans
-// the shard-level scalars, one thread per shard ranks its lanes; the
-// steal decision goes into mctl, which K11 and the compaction after it
-// read, so the fused mesh loop never asks the host whether to steal.
-// K11: one block per lane; the blocks of exported lanes copy their row
-// into the receiver's slot (copy_row_part, as a fork child is written)
-// and kill the exporter. K12: one block orders the deal, one block per
-// lane gathers every plane's row into scratch, one per lane copies back.
-// Bound on the H100: bytes (the lanes' rows moved; K10 reads 5 bytes a
-// lane); at L = 512 all three are launch- and latency-bound.
+// mesh_steal_kernel is K10 and K11 in one kernel (replaces
+// mythril_tpu/laser/tpu/mesh.py:127 steal_plan with :237 occupancy_impl,
+// :178 steal_apply, and the gate and counters of megakernel.py:401-410),
+// one cooperative launch a use: the fused mesh loop's steal round (plan,
+// decide, move under the gate, count) and the standalone occupancy_impl,
+// steal_plan and steal_apply (flags, mesh.cuh). The parts of a launch are
+// in mesh.cuh: (a) a thread a lane and two ballots a warp; (b) warp 0's
+// scans of the warps' counts and of the shards' scalars; (c) a thread a
+// lane ranks, searches and records its move; (d) the grid shares the
+// moved rows' units. Each block plans from the unchanged planes on its
+// own (the plan reads 5 bytes a lane), so all blocks reach the same
+// decision: when it is "no steal" they all return after (c), and the
+// launch has written only the plan and mctl. Two hazards:
+//  - counts against moves: the plan reads the alive and status planes
+//    of every lane, target lanes included, and the moves write them. So
+//    a launch that plans and moves meets at one grid barrier between (c)
+//    and (d): no block writes a plane before every block has read its
+//    inputs. All blocks decide alike, so all reach it or none does. A
+//    launch that moves from a given plan reads no plane before its moves
+//    (its bits are export_'s), so it has no barrier.
+//  - copy against kill: the exporter's alive, steps, static_pruned and
+//    visited are zeroed by the thread that copied each unit of them, after
+//    its own load (mesh_move_units).
+// Only counting and planning launch one block (no moves to share); the
+// moving uses launch as many blocks as the card holds at once (a
+// cooperative launch must be resident as a whole).
+//
+// Bound on the H100: bytes. The plan reads 5 bytes a lane (alive,
+// status) and writes 5 a lane of plan (export_, buf_pos) with 12 n + 16
+// of shard columns and mctl; the moves read each moved row once and
+// write it once (and zero the exporters' killed planes). At L = 512 that
+// is under 10 KB without a steal, so the launch is launch- and
+// latency-bound: the design keeps it to one launch a round with four
+// block barriers and no serial walk (one load a thread, ballots,
+// two warp scans of 32 lanes, a binary search of 6 steps), and spreads a
+// steal's rows over every SM in 16-byte units where the planes allow,
+// MESH_BATCH loads in flight a thread, so a steal's time follows its bytes.
+//
+// K12: one block orders the deal, one block per lane gathers every
+// plane's row into scratch, one per lane copies back (replaces
+// mesh.py:83 rebalance).
+#include <cooperative_groups.h>
+
 #include "mesh.cuh"
 
-#define MESH_MAX_LANES 1024
+namespace cg = cooperative_groups;
 
-__global__ void mesh_plan_kernel(Planes P, int n, int flags, uint8_t* export_, int32_t* buf_pos,
-                                 int32_t* sh, int32_t* mctl, const int32_t* ctl) {
+#define MESH_THREADS MESH_MAX_LANES
+#define MAX_DEVICES 64
+
+__global__ void __launch_bounds__(MESH_THREADS, 1)
+    mesh_steal_kernel(Planes P, int n, int flags, uint8_t* export_, int32_t* buf_pos, int32_t* sh,
+                      int32_t* mctl, const int32_t* ctl) {
   if (ctl && !ctl[1]) return;
-  __shared__ int32_t sur[MESH_MAX_SHARDS], dbase[MESH_MAX_SHARDS], rbase[MESH_MAX_SHARDS],
-      rend[MESH_MAX_SHARDS];
-  __shared__ int moved_s;
-  const int per = P.L / n;
-  for (int s = threadIdx.x; s < n; s += blockDim.x) mesh_count_shard(P, per, s, n, sh);
-  if (!(flags & MESH_PLAN)) return;
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    moved_s = mesh_plan_scalars(per, n, sh, sur, dbase, rbase, rend);
-    mesh_commit(sh, n, moved_s, flags, mctl);
+  __shared__ MeshShared ms;
+  const int t = threadIdx.x, L = P.L;
+  // (a)
+  mesh_unit_fields(P, ms, t, blockDim.x);
+  const uint8_t b = mesh_lane_bits(P, export_, flags, t);
+  const uint32_t b0 = __ballot_sync(0xffffffffu, b & 1), b1 = __ballot_sync(0xffffffffu, b & 2);
+  if ((t & 31) == 0) {
+    ms.ballot[t >> 5][0] = b0;
+    ms.ballot[t >> 5][1] = b1;
   }
   __syncthreads();
-  for (int s = threadIdx.x; s < n; s += blockDim.x)
-    mesh_plan_shard(P, per, n, s, sh, sur, dbase, rbase, rend, moved_s, export_, buf_pos);
+  // (b); warp 1 sums the unit table meanwhile
+  if (t == 32) mesh_units_prefix(ms);
+  if (t < 32) {
+    mesh_warp_counts(ms, blockDim.x >> 5, t);
+    __syncwarp();
+    mesh_shard_pair(ms, L, n, t);
+    __syncwarp();
+    mesh_warp_scans(ms, t);
+    __syncwarp();
+    mesh_shard_bases(ms, L, n, flags, t);
+  }
+  __syncthreads();
+  // (c)
+  mesh_lane_plan(ms, L, n, flags, blockIdx.x == 0, export_, buf_pos, sh, mctl, t);
+  __syncthreads();
+  if (!ms.nmove) return;
+  if (flags & MESH_PLAN) cg::this_grid().sync();  // counts against moves
+  // (d)
+  mesh_move_units(ms, blockIdx.x * blockDim.x + t, gridDim.x * blockDim.x);
 }
 
-__global__ void mesh_steal_kernel(Planes P, int n, const uint8_t* export_, const int32_t* buf_pos,
-                                  const int32_t* sh, const int32_t* ctl, const int32_t* gate) {
-  if ((ctl && !ctl[1]) || (gate && !gate[0])) return;
-  int lane = blockIdx.x;
-  if (!export_[lane]) return;
-  int per = P.L / n;
-  copy_row_part(P, P, lane, mesh_target(sh, per, n, buf_pos[lane]), threadIdx.x, blockDim.x);
-  __syncthreads();
-  mesh_kill_part(P, lane, threadIdx.x, blockDim.x);
+// The most blocks of mesh_steal_kernel the current device holds at once.
+static int mesh_resident_blocks(int* out) {
+  static int cache[MAX_DEVICES];
+  int dev;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e) return (int)e;
+  if (dev < MAX_DEVICES && cache[dev]) {
+    *out = cache[dev];
+    return 0;
+  }
+  int per_sm = 0, sms = 0;
+  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, mesh_steal_kernel, MESH_THREADS, 0);
+  if (e) return (int)e;
+  e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e) return (int)e;
+  *out = per_sm * sms;
+  if (dev < MAX_DEVICES) cache[dev] = *out;
+  return 0;
 }
 
 __global__ void mesh_order_kernel(Planes P, int n, int32_t* order) {
@@ -68,20 +128,48 @@ static int mesh_args_ok(const Planes* P, int n, int nfields) {
 
 MT_ERROR_STRING_FN
 
-MT_EXPORT int mt_mesh_plan(const Planes* P, int n, int flags, uint8_t* export_, int32_t* buf_pos,
-                           int32_t* sh, int32_t* mctl, const int32_t* ctl, int nfields,
-                           cudaStream_t stream) {
+// One launch of the steal kernel under flags (mesh.cuh). export_ u8[L],
+// buf_pos i32[L], sh i32[3n], mctl i32[4]; ctl (the fused loop's control
+// word, or null): the launch does nothing once ctl[1] is 0.
+MT_EXPORT int mt_mesh_steal(const Planes* P, int n, int flags, uint8_t* export_, int32_t* buf_pos,
+                            int32_t* sh, int32_t* mctl, const int32_t* ctl, int nfields, cudaStream_t stream) {
   if (!mesh_args_ok(P, n, nfields)) return (int)cudaErrorInvalidValue;
-  mesh_plan_kernel<<<1, 64, 0, stream>>>(*P, n, flags, export_, buf_pos, sh, mctl, ctl);
+  int grid = 1;
+  if (flags & MESH_MOVE) {
+    int err = mesh_resident_blocks(&grid);
+    if (err) return err;
+    if (grid < 1) return (int)cudaErrorCooperativeLaunchTooLarge;
+  }
+  Planes Pv = *P;
+  void* args[] = {&Pv, &n, &flags, (void*)&export_, (void*)&buf_pos, (void*)&sh, (void*)&mctl, (void*)&ctl};
+  int err = (int)cudaLaunchCooperativeKernel((const void*)mesh_steal_kernel, dim3(grid), dim3(MESH_THREADS), args,
+                                             0, stream);
+  if (err) {
+    cudaGetLastError();  // leave no error behind for the next launch's check
+    return err;
+  }
   return (int)cudaGetLastError();
 }
 
-MT_EXPORT int mt_mesh_steal(const Planes* P, int n, const uint8_t* export_, const int32_t* buf_pos,
-                            const int32_t* sh, const int32_t* ctl, const int32_t* gate,
-                            int nfields, cudaStream_t stream) {
-  if (!mesh_args_ok(P, n, nfields)) return (int)cudaErrorInvalidValue;
-  mesh_steal_kernel<<<P->L, 256, 0, stream>>>(*P, n, export_, buf_pos, sh, ctl, gate);
-  return (int)cudaGetLastError();
+// out = [registers per thread, local bytes per thread (spills and stack),
+// static shared bytes per block, threads per block, blocks resident per
+// SM, SMs]: what chip_smoke.py prints beside the steal kernel's times.
+MT_EXPORT int mt_mesh_steal_info(int* out) {
+  cudaFuncAttributes a;
+  cudaError_t e = cudaFuncGetAttributes(&a, mesh_steal_kernel);
+  if (e) return (int)e;
+  int dev, per_sm = 0, sms = 0;
+  if ((e = cudaGetDevice(&dev))) return (int)e;
+  if ((e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, mesh_steal_kernel, MESH_THREADS, 0)))
+    return (int)e;
+  if ((e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev))) return (int)e;
+  out[0] = a.numRegs;
+  out[1] = (int)a.localSizeBytes;
+  out[2] = (int)a.sharedSizeBytes;
+  out[3] = MESH_THREADS;
+  out[4] = per_sm;
+  out[5] = sms;
+  return 0;
 }
 
 MT_EXPORT int mt_mesh_deal(const Planes* P, const Planes* Sc, int n, int32_t* order, int nfields,

@@ -3,132 +3,377 @@
 // blocks of per = L / n lanes of one batch, as shard_map sees the
 // lane-sharded planes. What crossed devices there (the all_gather of the
 // counts, the all_to_all of the exported rows, the global deal) is a
-// plan in one block and row copies here.
+// plan in shared memory and row copies here.
 //
 //   sh   = int32[3n]: occ (running lanes), alive_c (alive lanes), filled
 //          (lanes each shard imports), per shard
 //   mctl = int32[4]: [do_steal, moved, steal_events, steal_lanes]
+//
+// K10 (the counts and the steal plan) and K11 (the lane moves) are one
+// kernel (mesh.cu), written here as the parts of one cooperative launch
+// split at its barriers, each a function of the thread's place, so the
+// host emulation runs them thread by thread in either order:
+//  (a) one thread a lane loads the lane's bit (running; or exported, when
+//      the moves come from a given plan) and alive bit; each warp's two
+//      ballots go to shared memory; the threads fill the unit table of a
+//      row, a plane each; __syncthreads();
+//  (b) warp 0: the exclusive scan of the warps' packed counts, so that
+//      the count of any lane prefix is one shared load and two popcounts
+//      (mesh_count_at); then the shard-level scalars, two shards a lane
+//      (n <= 64), as shuffle scans: target, surplus, deficit capped by
+//      free lanes, the three exclusive cumsums, moved, the spread gate
+//      (one thread of warp 1 sums the unit table meanwhile);
+//      __syncthreads();
+//  (c) one thread a lane: its rank among its shard's running lanes is a
+//      difference of two prefix counts (a segmented scan), dest a binary
+//      search over recv_end; block 0 writes the plan, sh and mctl; each
+//      exporter writes its move's source and target into shared memory;
+//      __syncthreads();
+//  (d) when there are lanes to move (after one grid barrier, if the
+//      launch also planned): every thread of the grid takes units of the
+//      moved rows (mesh_move_units), grid-stride.
+// No thread loops over a shard's lanes or over the shards for a lane.
 #pragma once
 #include "common.cuh"
 
 #define MESH_MAX_SHARDS 64
+#define MESH_MAX_LANES 1024
+#define MESH_MAX_WARPS (MESH_MAX_LANES / 32)
+#define MESH_BATCH 4  // units a thread loads before it stores any
 
-// K10 flags: plan the steal (else count only); gate the steal on the
-// spread (the fused loop, megakernel.py:401-410: moved > 0 and
-// max(occ) - min(occ) > 1; else moved > 0); add the event to mctl[2..3]
+// flags. Count only (0: occupancy_impl); MESH_PLAN: the steal plan
+// (steal_plan); MESH_MOVE alone: the moves of the plan given in export_,
+// buf_pos and sh's alive_c column, ungated (steal_apply); MESH_PLAN |
+// MESH_MOVE: plan, decide and move in one launch (the fused loop's
+// steal_round). MESH_GATE_SPREAD gates the steal on the spread (the fused
+// loop, megakernel.py:401-410: moved > 0 and max(occ) - min(occ) > 1;
+// else moved > 0); MESH_ACCUM adds the event to mctl[2..3].
 #define MESH_PLAN 1
 #define MESH_GATE_SPREAD 2
 #define MESH_ACCUM 4
+#define MESH_MOVE 8
+
+// the planes an exporter has zeroed (mesh.py:210-215): its copy owns them
+#define MESH_KILLED ((1ull << F_ALIVE) | (1ull << F_STEPS) | (1ull << F_STATIC_PRUNED) | (1ull << F_VISITED))
 
 MT_DEV bool mesh_running(const Planes& P, int l) {
   return PL(uint8_t, F_ALIVE)[l] && PL(int32_t, F_STATUS)[l] == RUNNING;
 }
 
-// Per-shard [running, alive] counts (mesh.py:150-153, occupancy_impl :237).
-MT_DEV void mesh_count_shard(const Planes& P, int per, int s, int n, int32_t* sh) {
-  int run = 0, alv = 0;
-  for (int l = s * per; l < (s + 1) * per; ++l) {
-    run += mesh_running(P, l);
-    alv += PL(uint8_t, F_ALIVE)[l] ? 1 : 0;
-  }
-  sh[s] = run;
-  sh[n + s] = alv;
+MT_DEV int mesh_popc(uint32_t x) {
+#ifdef MT_HOST_EMU
+  return __builtin_popcount(x);
+#else
+  return __popc(x);
+#endif
 }
 
-// The plan's shard-level scalars (mesh.py:154-168), serial over n shards:
-// fair-share target, surplus, deficit capped by free lanes, exclusive
-// cumsums, filled. Writes surplus/donor_base/recv_base/recv_end (each
-// int32[n]) and sh's filled column; returns moved.
-MT_DEV int mesh_plan_scalars(int per, int n, int32_t* sh, int32_t* surplus, int32_t* donor_base,
-                             int32_t* recv_base, int32_t* recv_end) {
-  const int32_t* occ = sh;
-  const int32_t* alive_c = sh + n;
-  int total = 0;
-  for (int s = 0; s < n; ++s) total += occ[s];
-  int base = total / n, rem = total - base * n;
-  int32_t deficit[MESH_MAX_SHARDS];
-  int sum_sur = 0, sum_def = 0;
-  for (int s = 0; s < n; ++s) {
-    int target = base + (s < rem ? 1 : 0);
-    int free_ = per - alive_c[s];
-    int sur = occ[s] - target;
-    surplus[s] = sur > 0 ? sur : 0;
-    int def = target - occ[s];
-    def = def > 0 ? def : 0;
-    deficit[s] = def < free_ ? def : free_;
-    donor_base[s] = sum_sur;
-    recv_base[s] = sum_def;
-    sum_sur += surplus[s];
-    sum_def += deficit[s];
-    recv_end[s] = sum_def;
-  }
-  int moved = sum_sur < sum_def ? sum_sur : sum_def;
-  for (int s = 0; s < n; ++s) {
-    int f = moved - recv_base[s];
-    sh[2 * n + s] = f < 0 ? 0 : (f > deficit[s] ? deficit[s] : f);
-  }
-  return moved;
+// packed lane counts: the counted bit (running, or exported) in bits
+// 0-15, alive in bits 16-31 (at most 1024 lanes each)
+MT_DEV int mp_run(int32_t c) { return c & 0xFFFF; }
+MT_DEV int mp_alive(int32_t c) { return (c >> 16) & 0xFFFF; }
+
+// one block's shared memory
+struct MeshShared {
+  uint32_t ballot[MESH_MAX_WARPS][2];  // per warp: its lanes' counted bits, alive bits
+  int32_t wpre[MESH_MAX_WARPS + 1];    // per warp: packed counts of the lanes before it; [nwarps]: totals
+  int32_t occ[MESH_MAX_SHARDS], alive_c[MESH_MAX_SHARDS], surplus[MESH_MAX_SHARDS], deficit[MESH_MAX_SHARDS];
+  int32_t dbase[MESH_MAX_SHARDS], rbase[MESH_MAX_SHARDS], rend[MESH_MAX_SHARDS];
+  int32_t wv[4][32];  // warp 0, a lane's two shards: surplus and deficit sums (then scanned), min and max occ
+  int32_t moved, go, nmove;
+  int16_t mv_src[MESH_MAX_LANES], mv_dst[MESH_MAX_LANES];  // move m: exporter lane, target lane
+  // A lane's row of every plane as one list of units: plane f's row is
+  // units ustart[f] .. ustart[f + 1] - 1, each 1 << ushift[f] bytes (16,
+  // 4 or 1: the widest its row size and base allow).
+  uint8_t* base[NFIELDS];
+  int64_t rb[NFIELDS];
+  int32_t ustart[NFIELDS + 1];
+  uint8_t ushift[NFIELDS];
+};
+
+// part (a): lane t's bits (0 past the lanes)
+MT_DEV uint8_t mesh_lane_bits(const Planes& P, const uint8_t* export_, int flags, int t) {
+  if (t >= P.L) return 0;
+  if ((flags & MESH_MOVE) && !(flags & MESH_PLAN)) return export_[t] ? 1 : 0;
+  const bool alive = PL(uint8_t, F_ALIVE)[t];
+  return (alive && PL(int32_t, F_STATUS)[t] == RUNNING ? 1 : 0) | (alive ? 2 : 0);
 }
 
-// The lanes of shard s (mesh.py:170-180): running lanes ranked at or past
-// keep export, to global donor index gidx; dest is the shard whose
-// [recv_base, recv_end) holds gidx (searchsorted, side right), slot the
-// offset in it. buf_pos = dest * per + slot, or n * per when not exported.
-MT_DEV void mesh_plan_shard(const Planes& P, int per, int n, int s, const int32_t* sh,
-                            const int32_t* surplus, const int32_t* donor_base,
-                            const int32_t* recv_base, const int32_t* recv_end, int moved,
-                            uint8_t* export_, int32_t* buf_pos) {
-  int keep = sh[s] - surplus[s];
-  int rank = -1;
-  for (int l = s * per; l < (s + 1) * per; ++l) {
-    bool run = mesh_running(P, l);
-    rank += run ? 1 : 0;
-    int gidx = donor_base[s] + rank - keep;
-    bool ex = run && rank >= keep && gidx < moved;
-    int pos = n * per;
-    if (ex) {
-      int dest = 0;
-      while (dest < n && recv_end[dest] <= gidx) ++dest;
-      if (dest > n - 1) dest = n - 1;
-      pos = dest * per + (gidx - recv_base[dest]);
-    }
-    export_[l] = ex ? 1 : 0;
-    buf_pos[l] = pos;
+// part (a), thread t of nthreads: planes t, t + nthreads, ... of the unit table
+MT_DEV void mesh_unit_fields(const Planes& P, MeshShared& ms, int t, int nthreads) {
+  for (int f = t; f < NFIELDS; f += nthreads) {
+    const int64_t rb = P.row_bytes[f];
+    const uintptr_t al = (uintptr_t)P.p[f];
+    const int shift = ((rb & 15) == 0 && (al & 15) == 0) ? 4 : (((rb & 3) == 0 && (al & 3) == 0) ? 2 : 0);
+    ms.base[f] = (uint8_t*)P.p[f];
+    ms.rb[f] = rb;
+    ms.ushift[f] = (uint8_t)shift;
+    ms.ustart[f + 1] = (int32_t)(rb >> shift);
   }
+}
+
+// part (b), one thread (of warp 1 on the card, beside warp 0's scans)
+MT_DEV void mesh_units_prefix(MeshShared& ms) {
+  ms.ustart[0] = 0;
+  for (int f = 0; f < NFIELDS; ++f) ms.ustart[f + 1] += ms.ustart[f];
+}
+
+MT_DEV int32_t mesh_warp_total(const MeshShared& ms, int w) {
+  return mesh_popc(ms.ballot[w][0]) | (mesh_popc(ms.ballot[w][1]) << 16);
+}
+
+// after part (b)'s first scan: the packed counts of lanes [0, l), l <= L
+MT_DEV int32_t mesh_count_at(const MeshShared& ms, int l) {
+  const int w = l >> 5, b = l & 31;
+  int32_t c = ms.wpre[w];
+  if (b) {
+    const uint32_t m = (1u << b) - 1;
+    c += mesh_popc(ms.ballot[w][0] & m) | (mesh_popc(ms.ballot[w][1] & m) << 16);
+  }
+  return c;
+}
+
+// part (b), lane j of warp 0: shards 2j and 2j + 1 (mesh.py:150-166):
+// counts, fair-share target, surplus, deficit capped by free lanes
+MT_DEV void mesh_shard_pair(MeshShared& ms, int L, int n, int j) {
+  const int per = L / n;
+  const int total = mp_run(mesh_count_at(ms, L)), base = total / n, rem = total - base * n;
+  int32_t sur = 0, def = 0, lo = 0x7fffffff, hi = -1;
+  for (int s = 2 * j; s < 2 * j + 2 && s < n; ++s) {
+    const int32_t c0 = mesh_count_at(ms, s * per), c1 = mesh_count_at(ms, (s + 1) * per);
+    const int occ = mp_run(c1) - mp_run(c0), free_ = per - (mp_alive(c1) - mp_alive(c0));
+    const int target = base + (s < rem ? 1 : 0);
+    const int su = occ > target ? occ - target : 0;
+    const int de0 = target > occ ? target - occ : 0;
+    const int de = de0 < free_ ? de0 : free_;
+    ms.occ[s] = occ;
+    ms.alive_c[s] = per - free_;
+    ms.surplus[s] = su;
+    ms.deficit[s] = de;
+    sur += su;
+    def += de;
+    lo = occ < lo ? occ : lo;
+    hi = occ > hi ? occ : hi;
+  }
+  ms.wv[0][j] = sur;
+  ms.wv[1][j] = def;
+  ms.wv[2][j] = lo;
+  ms.wv[3][j] = hi;
+}
+
+// part (b), lane j after the scans of wv: the exclusive cumsums of its
+// shards (donor_base, recv_base, recv_end); lane 0 the launch's scalars
+MT_DEV void mesh_shard_bases(MeshShared& ms, int L, int n, int flags, int j) {
+  int db = ms.wv[0][j], rb = ms.wv[1][j];
+  for (int s = 2 * j; s < 2 * j + 2 && s < n; ++s) {
+    db -= ms.surplus[s];
+    rb -= ms.deficit[s];
+  }
+  for (int s = 2 * j; s < 2 * j + 2 && s < n; ++s) {
+    ms.dbase[s] = db;
+    ms.rbase[s] = rb;
+    db += ms.surplus[s];
+    rb += ms.deficit[s];
+    ms.rend[s] = rb;
+  }
+  if (j) return;
+  const int moved = ms.wv[0][31] < ms.wv[1][31] ? ms.wv[0][31] : ms.wv[1][31];
+  ms.moved = moved;
+  if (flags & MESH_PLAN) {
+    ms.go = moved > 0 && (!(flags & MESH_GATE_SPREAD) || ms.wv[3][0] - ms.wv[2][0] > 1);
+    ms.nmove = (flags & MESH_MOVE) && ms.go ? moved : 0;
+  } else {
+    ms.go = 0;
+    ms.nmove = (flags & MESH_MOVE) ? mp_run(mesh_count_at(ms, L)) : 0;
+  }
+}
+
+#ifdef MT_HOST_EMU
+// part (b)'s warp-collective steps on the host: the same results over
+// the arrays, as scan.cuh's rank_scan_warps
+static void mesh_warp_counts(MeshShared& ms, int nwarps) {
+  int32_t x = 0;
+  for (int w = 0; w < nwarps; ++w) {
+    const int32_t v = mesh_warp_total(ms, w);
+    ms.wpre[w] = x;
+    x += v;
+  }
+  ms.wpre[nwarps] = x;
+}
+
+static void mesh_warp_scans(MeshShared& ms) {
+  for (int i = 1; i < 32; ++i) {
+    ms.wv[0][i] += ms.wv[0][i - 1];
+    ms.wv[1][i] += ms.wv[1][i - 1];
+  }
+  int32_t lo = ms.wv[2][0], hi = ms.wv[3][0];
+  for (int i = 1; i < 32; ++i) {
+    lo = ms.wv[2][i] < lo ? ms.wv[2][i] : lo;
+    hi = ms.wv[3][i] > hi ? ms.wv[3][i] : hi;
+  }
+  for (int i = 0; i < 32; ++i) ms.wv[2][i] = lo, ms.wv[3][i] = hi;
+}
+#else
+// lane j of warp 0: the warps' packed counts, exclusive scan by shuffles
+__device__ __forceinline__ void mesh_warp_counts(MeshShared& ms, int nwarps, int j) {
+  const int32_t v = j < nwarps ? mesh_warp_total(ms, j) : 0;
+  int32_t x = v;
+  for (int d = 1; d < 32; d <<= 1) {
+    const int32_t y = __shfl_up_sync(0xffffffffu, x, d);
+    if (j >= d) x += y;
+  }
+  if (j < nwarps) ms.wpre[j] = x - v;
+  if (j == 31) ms.wpre[nwarps] = x;
+}
+
+// lane j of warp 0: inclusive scans of wv[0..1], min of wv[2], max of wv[3]
+__device__ __forceinline__ void mesh_warp_scans(MeshShared& ms, int j) {
+  int32_t s = ms.wv[0][j], d = ms.wv[1][j], lo = ms.wv[2][j], hi = ms.wv[3][j];
+  for (int o = 1; o < 32; o <<= 1) {
+    const int32_t ys = __shfl_up_sync(0xffffffffu, s, o), yd = __shfl_up_sync(0xffffffffu, d, o);
+    if (j >= o) s += ys, d += yd;
+  }
+  for (int o = 16; o; o >>= 1) {
+    const int32_t yl = __shfl_xor_sync(0xffffffffu, lo, o), yh = __shfl_xor_sync(0xffffffffu, hi, o);
+    lo = yl < lo ? yl : lo;
+    hi = yh > hi ? yh : hi;
+  }
+  ms.wv[0][j] = s;
+  ms.wv[1][j] = d;
+  ms.wv[2][j] = lo;
+  ms.wv[3][j] = hi;
+}
+#endif
+
+// searchsorted(recv_end, gidx, side="right"), clamped to n - 1
+MT_DEV int mesh_dest(const MeshShared& ms, int n, int gidx) {
+  int lo = 0, hi = n;
+  while (lo < hi) {
+    const int mid = (lo + hi) >> 1;
+    if (ms.rend[mid] <= gidx) lo = mid + 1;
+    else hi = mid;
+  }
+  return lo < n - 1 ? lo : n - 1;
 }
 
 // The steal decision and its counters (megakernel.py:401-410).
-MT_DEV void mesh_commit(const int32_t* sh, int n, int moved, int flags, int32_t* mctl) {
-  int lo = sh[0], hi = sh[0];
-  for (int s = 1; s < n; ++s) {
-    lo = sh[s] < lo ? sh[s] : lo;
-    hi = sh[s] > hi ? sh[s] : hi;
-  }
-  bool go = moved > 0 && (!(flags & MESH_GATE_SPREAD) || hi - lo > 1);
-  mctl[0] = go ? 1 : 0;
-  mctl[1] = moved;
+MT_DEV void mesh_commit(const MeshShared& ms, int flags, int32_t* mctl) {
+  mctl[0] = ms.go;
+  mctl[1] = ms.moved;
   if (flags & MESH_ACCUM) {
-    mctl[2] += go ? 1 : 0;
-    mctl[3] += go ? moved : 0;
+    mctl[2] += ms.go;
+    mctl[3] += ms.go ? ms.moved : 0;
   }
 }
 
-// One exported lane's move (mesh.py:178-224): its row lands at lane
-// alive_c[dest] + slot of block dest, then the exporter dies with its
-// counters zeroed. Donors are alive and targets free, so no two moves
-// touch one lane.
-MT_DEV int mesh_target(const int32_t* sh, int per, int n, int pos) {
-  int dest = pos / per;
-  return dest * per + sh[n + dest] + (pos - dest * per);
+// part (c), thread t (lane t): the plan of lane t (mesh.py:168-180):
+// running lanes ranked at or past keep export, to global donor index
+// gidx; dest is the shard whose [recv_base, recv_end) holds gidx, slot
+// the offset in it; buf_pos = dest * per + slot, n * per when not
+// exported. The exporter's row lands at lane alive_c[dest] + slot of
+// block dest (mesh.py:216-222), so move gidx is (lane, that lane). From
+// a given plan, move k is the k-th exported lane. Block 0 (writer) writes
+// the plan, and threads below n the shard columns.
+MT_DEV void mesh_lane_plan(MeshShared& ms, int L, int n, int flags, bool writer, uint8_t* export_,
+                           int32_t* buf_pos, int32_t* sh, int32_t* mctl, int t) {
+  const int per = L / n;
+  const bool from_plan = (flags & MESH_MOVE) && !(flags & MESH_PLAN);
+  if (writer && !from_plan && t < n) {
+    sh[t] = ms.occ[t];
+    sh[n + t] = ms.alive_c[t];
+    if (flags & MESH_PLAN) {
+      const int f = ms.moved - ms.rbase[t];
+      sh[2 * n + t] = f < 0 ? 0 : (f > ms.deficit[t] ? ms.deficit[t] : f);
+    }
+  }
+  if (writer && (flags & MESH_PLAN) && t == 0) mesh_commit(ms, flags, mctl);
+  if (t >= L || !(flags & (MESH_PLAN | MESH_MOVE))) return;
+  const bool bit = (ms.ballot[t >> 5][0] >> (t & 31)) & 1;
+  if (from_plan) {
+    if (!bit) return;
+    const int k = mp_run(mesh_count_at(ms, t)), pos = buf_pos[t], dest = pos / per;
+    ms.mv_src[k] = (int16_t)t;
+    ms.mv_dst[k] = (int16_t)(dest * per + sh[n + dest] + (pos - dest * per));
+    return;
+  }
+  const int s = t / per;
+  const int rank = mp_run(mesh_count_at(ms, t)) - mp_run(mesh_count_at(ms, s * per));
+  const int keep = ms.occ[s] - ms.surplus[s], gidx = ms.dbase[s] + rank - keep;
+  const bool ex = bit && rank >= keep && gidx < ms.moved;
+  int pos = n * per;
+  if (ex) {
+    const int dest = mesh_dest(ms, n, gidx), slot = gidx - ms.rbase[dest];
+    pos = dest * per + slot;
+    if (ms.nmove) {
+      ms.mv_src[gidx] = (int16_t)t;
+      ms.mv_dst[gidx] = (int16_t)(dest * per + ms.alive_c[dest] + slot);
+    }
+  }
+  if (writer) {
+    export_[t] = ex ? 1 : 0;
+    buf_pos[t] = pos;
+  }
 }
 
-MT_DEV void mesh_kill_part(const Planes& P, int lane, int tid, int nthreads) {
-  uint8_t* vis = PL(uint8_t, F_VISITED) + (int64_t)lane * P.CL;
-  for (int j = tid; j < P.CL; j += nthreads) vis[j] = 0;
-  if (tid == 0) {
-    PL(uint8_t, F_ALIVE)[lane] = 0;
-    PL(int32_t, F_STEPS)[lane] = 0;
-    PL(int32_t, F_STATIC_PRUNED)[lane] = 0;
+// the plane that holds unit v of a row: the last f with ustart[f] <= v
+MT_DEV int mesh_field_of(const MeshShared& ms, int v) {
+  int lo = 0, hi = NFIELDS - 1;
+  while (lo < hi) {
+    const int mid = (lo + hi + 1) >> 1;
+    if (ms.ustart[mid] <= v) lo = mid;
+    else hi = mid - 1;
+  }
+  return lo;
+}
+
+// part (d), thread gtid of the grid's G: units gtid, gtid + G, ... of the
+// nmove moved rows (unit u: move u / U, unit u % U of the row), each
+// copied from the exporter's row to the target's, MESH_BATCH of them
+// loaded before any is stored. The kill (mesh.py:210-215) cannot overtake
+// the copy of the same bytes: the thread that copies a unit of a
+// MESH_KILLED plane then stores zeros over it at the source, after its
+// own load of it. Exporters are alive and targets free, so no two moves
+// touch one lane and every byte is written by one thread.
+MT_DEV void mesh_move_units(const MeshShared& ms, uint32_t gtid, uint32_t G) {
+  const uint32_t U = (uint32_t)ms.ustart[NFIELDS], total = (uint32_t)ms.nmove * U;
+  const mt_u4 z = {0, 0, 0, 0};
+  for (uint32_t u0 = gtid; u0 < total; u0 += MESH_BATCH * G) {
+    mt_u4 buf[MESH_BATCH];
+    uint8_t* src[MESH_BATCH];
+    uint8_t* dst[MESH_BATCH];
+    int sft[MESH_BATCH];
+    bool kill[MESH_BATCH];
+#pragma unroll
+    for (int k = 0; k < MESH_BATCH; ++k) {
+      const uint32_t u = u0 + k * G;
+      dst[k] = nullptr;
+      src[k] = nullptr;
+      sft[k] = 0;
+      kill[k] = false;
+      buf[k] = z;
+      if (u >= total) continue;
+      const uint32_t m = u / U, v = u - m * U;
+      const int f = mesh_field_of(ms, (int)v);
+      sft[k] = ms.ushift[f];
+      kill[k] = (MESH_KILLED >> f) & 1;
+      const int64_t off = (int64_t)(v - (uint32_t)ms.ustart[f]) << sft[k];
+      src[k] = ms.base[f] + ms.rb[f] * ms.mv_src[m] + off;
+      dst[k] = ms.base[f] + ms.rb[f] * ms.mv_dst[m] + off;
+      if (sft[k] == 4) buf[k] = *(const mt_u4*)src[k];
+      else if (sft[k] == 2) buf[k].x = *(const uint32_t*)src[k];
+      else buf[k].x = *src[k];
+    }
+#pragma unroll
+    for (int k = 0; k < MESH_BATCH; ++k) {
+      if (!dst[k]) continue;
+      if (sft[k] == 4) *(mt_u4*)dst[k] = buf[k];
+      else if (sft[k] == 2) *(uint32_t*)dst[k] = buf[k].x;
+      else *dst[k] = (uint8_t)buf[k].x;
+      if (!kill[k]) continue;
+      if (sft[k] == 4) *(mt_u4*)src[k] = z;
+      else if (sft[k] == 2) *(uint32_t*)src[k] = 0u;
+      else *src[k] = 0;
+    }
   }
 }
 

@@ -153,18 +153,21 @@ _SIGS = {
     ("transfer", "mt_xfer"): [_V, _I, ctypes.c_uint32, _V],
     ("hist", "mt_op_hist"): [_V, _I, _I] + [_V] * 4 + [_I, _V, _V],
     ("slice", "mt_slice_ctl"): [_V, _V, _I, _V, _I, _V],
-    ("mesh", "mt_mesh_plan"): [_P(Planes), _I, _I] + [_V] * 5 + [_I, _V],
-    ("mesh", "mt_mesh_steal"): [_P(Planes), _I] + [_V] * 5 + [_I, _V],
+    ("mesh", "mt_mesh_steal"): [_P(Planes), _I, _I] + [_V] * 5 + [_I, _V],
+    ("mesh", "mt_mesh_steal_info"): [_V],
     ("mesh", "mt_mesh_deal"): [_P(Planes), _P(Planes), _I, _V, _I, _V],
 }
 
-# K4 flags (csrc/megakernel.cuh) and K10 flags (csrc/mesh.cuh)
+# K4 flags (csrc/megakernel.cuh) and the steal kernel's (csrc/mesh.cuh)
 EPI_COMMIT = 1
 EPI_COMPACT_ONLY = 2
 MESH_PLAN = 1
 MESH_GATE_SPREAD = 2
 MESH_ACCUM = 4
+MESH_MOVE = 8
+MESH_STEAL_ROUND = MESH_PLAN | MESH_GATE_SPREAD | MESH_ACCUM | MESH_MOVE
 MESH_MAX_SHARDS = 64
+MESH_MAX_LANES = 1024
 
 
 def _fn(lib: str, name: str):
@@ -243,6 +246,11 @@ def unsat_info(dev) -> dict:
 def epilogue_info(dev) -> dict:
     """K4's compiled resources, as ``step_run_info``."""
     return dict(zip(_INFO_KEYS, _kernel_info("megakernel", "mt_round_epilogue_info", dev, 6)))
+
+
+def mesh_steal_info(dev) -> dict:
+    """The steal kernel's (K10/K11) compiled resources, as ``step_run_info``."""
+    return dict(zip(_INFO_KEYS, _kernel_info("mesh", "mt_mesh_steal_info", dev, 6)))
 
 
 def _same(built, given) -> bool:
@@ -393,9 +401,10 @@ def launch_slice_ctl(a: SliceArgs) -> None:
 
 
 class MeshArgs:
-    """K10/K11 (``csrc/mesh.cu``) on one batch over ``n`` shards: the
-    plane structs and the plan buffers, checked and built once per loop
-    (the fused mesh loop launches both every round on the same batch).
+    """The steal kernel (K10/K11, ``csrc/mesh.cu``) on one batch over
+    ``n`` shards: the plane struct and the plan buffers, checked and
+    built once per loop (the fused mesh loop launches it every round on
+    the same batch).
 
     ``export_`` u8[L] and ``buf_pos`` i32[L] are the plan per lane,
     ``sh`` i32[3n] the shard columns [occ, alive_c, filled], ``mctl``
@@ -406,6 +415,8 @@ class MeshArgs:
         L = st.pc.shape[0]
         if n < 1 or n > MESH_MAX_SHARDS or L % n:
             raise _build.KernelError(f"{L} lanes do not split into {n} shards (at most {MESH_MAX_SHARDS})")
+        if L > MESH_MAX_LANES:
+            raise _build.KernelError(f"the steal kernel takes at most {MESH_MAX_LANES} lanes, not {L}")
         if ctl is not None:
             _checked(ctl, "ctl", torch.int32, dev)
         self.n = int(n)
@@ -415,24 +426,18 @@ class MeshArgs:
         self.sh = torch.zeros(3 * n, dtype=torch.int32, device=dev)
         self.mctl = torch.zeros(4, dtype=torch.int32, device=dev)
         self.ctl = ctl
-        self.stream = _build.stream(dev)
+        self.argv = ((ctypes.byref(self.pl), self.n),
+                     (_vp(self.export_), _vp(self.buf_pos), _vp(self.sh), _vp(self.mctl), _vp(ctl), NFIELDS,
+                      _build.stream(dev)))
 
 
-def launch_mesh_plan(a: MeshArgs, flags: int) -> None:
-    """K10: the per-shard counts and, with MESH_PLAN, the steal plan."""
-    rc = _fn("mesh", "mt_mesh_plan")(
-        ctypes.byref(a.pl), a.n, int(flags), _vp(a.export_), _vp(a.buf_pos), _vp(a.sh), _vp(a.mctl),
-        _vp(a.ctl), NFIELDS, a.stream)
-    _build.check(rc, "mesh_plan", "mesh")
-
-
-def launch_mesh_steal(a: MeshArgs, gated: bool) -> None:
-    """K11: move every exported lane's row, kill the exporters; with
-    ``gated`` only when K10's decision (mctl[0]) says steal."""
-    rc = _fn("mesh", "mt_mesh_steal")(
-        ctypes.byref(a.pl), a.n, _vp(a.export_), _vp(a.buf_pos), _vp(a.sh), _vp(a.ctl),
-        _vp(a.mctl if gated else None), NFIELDS, a.stream)
-    _build.check(rc, "mesh_steal", "mesh")
+def launch_mesh_steal(a: MeshArgs, flags: int) -> None:
+    """One launch of the steal kernel: with ``flags`` 0 the per-shard
+    counts, MESH_PLAN the steal plan, MESH_MOVE alone the moves of the
+    plan in ``a`` (ungated), MESH_STEAL_ROUND the fused loop's steal
+    (plan, decide into mctl, move when it says so, count)."""
+    head, tail = a.argv
+    _build.check(_fn("mesh", "mt_mesh_steal")(*head, int(flags), *tail), "mesh_steal", "mesh")
 
 
 def launch_mesh_deal(st: StateBatch, scratch: StateBatch, n: int, order: torch.Tensor) -> None:

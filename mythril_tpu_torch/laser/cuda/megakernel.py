@@ -41,8 +41,9 @@ and 2 x code_len per dying lane.
 ``run_fused_mesh`` is the same super-round over a mesh of n lane shards
 (the reference's ``_mesh_kernel`` under ``shard_map``, B12): K1 places
 forks and K4 compacts inside each shard's lane block, and between rounds
-K10 plans the work-steal and K11 moves the lanes (``mesh.py``), gated on
-the device; ``info`` grows to i32[9 + n].
+one launch of the steal kernel (K10/K11, ``mesh.steal_round``) plans the
+work-steal and moves the lanes, gated on the device; ``info`` grows to
+i32[9 + n].
 """
 
 from typing import NamedTuple
@@ -269,15 +270,15 @@ def run_fused_mesh(
     ``st`` on ``mesh.device``), as the reference's ``_mesh_kernel`` runs
     it under ``shard_map`` (megakernel.py:360-449): each round steps with
     forks placed per shard (K1), screens (K3) and prunes, kills and
-    compacts per shard (K4); then the work-steal: K10 plans from the
-    per-shard counts and decides ``moved > 0 and spread > 1`` into a
-    control word, K11 moves the lanes, and a bare per-shard compaction
-    (K4) follows, all gated on that word. The loop runs while
+    compacts per shard (K4); then the work-steal, one launch of the steal
+    kernel: it plans from the per-shard counts, decides ``moved > 0 and
+    spread > 1`` into a control word and moves the lanes when it says so;
+    a bare per-shard compaction (K4) follows, gated on that word. The loop runs while
     ``r < max_rounds`` and some lane of any shard runs. ``info`` is
     i32[9 + n] (``decode_mesh_info``); ``hist`` sums over the shards and
     ``pruned_visited`` ORs over them, as the reference's psums do.
 
-    On the card ``max_rounds x (K1 + K3 + K4 + K10 + K11 + K4)`` launches
+    On the card ``max_rounds x (K1 + K3 + K4 + steal + K4)`` launches
     are queued with no host sync (with stats, K1's stats instance folds
     the histogram inside its launch); the round's control word is
     committed after the steal and its compaction, which run under it

@@ -17,14 +17,18 @@ lane axis of the ``StateBatch`` over a ``jax.sharding.Mesh`` of devices
 Here a mesh of n shards is n contiguous blocks of ``per = L / n`` lanes
 of one batch on one card, as the reference's tests and its multichip
 evidence run it on n virtual devices of one host. What crossed devices
-becomes three CUDA kernels (``csrc/mesh.cu``):
+becomes two CUDA kernels (``csrc/mesh.cu``):
 
-- K10 ``mesh_plan`` (one block): the per-shard counts, the steal plan,
-  and in the fused loop the steal decision ``moved > 0 and
-  max(occ) - min(occ) > 1`` written into a control word on the card;
-- K11 ``mesh_steal`` (one block per lane): every exported lane's row of
-  every plane is copied into its receiver slot, and the exporter dies
-  with its ``steps``/``static_pruned``/``visited`` zeroed;
+- the steal kernel (K10 and K11, one cooperative launch a use): the
+  per-shard counts and the steal plan (K10's function: a thread a lane,
+  warp ballots and scans, no serial walk) and the lane moves (K11's:
+  every exported lane's row of every plane copied into its receiver slot
+  by the whole grid in 16-byte units, the exporter killed with its
+  ``steps``/``static_pruned``/``visited`` zeroed). The fused loop's
+  ``steal_round`` does both in one launch, with the steal decision
+  ``moved > 0 and max(occ) - min(occ) > 1`` taken on the card;
+  ``occupancy_impl``, ``steal_plan`` and ``steal_apply`` launch it for
+  one function each;
 - K12 ``mesh_deal`` (one block for the order, one per lane for the row
   moves through a scratch batch): ``rebalance``.
 
@@ -45,8 +49,9 @@ from mythril_tpu_torch.laser.cuda.batch import RUNNING, StateBatch
 
 I32 = torch.int32
 
-plan_launches = 0  # K10 launches (CUDA path only)
-steal_launches = 0  # K11 launches (CUDA path only)
+launches = 0  # launches of the steal kernel, whatever their use (CUDA path only)
+plan_launches = 0  # of those, the ones that counted or planned (K10's function)
+steal_launches = 0  # of those, the ones that moved lanes or decided whether to (K11's function)
 deal_launches = 0  # K12 launches (CUDA path only)
 
 
@@ -184,7 +189,7 @@ def rebalance(st: StateBatch, n_shards: int = 1, device="cuda") -> StateBatch:
     return out
 
 
-# -- K10: occupancy and the steal plan ----------------------------------
+# -- the steal kernel: occupancy, the steal plan, the moves ------------
 
 
 class StealPlan(NamedTuple):
@@ -205,9 +210,22 @@ def occupancy_impl_plain(st: StateBatch, n_shards: int) -> torch.Tensor:
     return _running(st).to(I32).reshape(n_shards, -1).sum(1).to(I32)
 
 
+def _launch(a, flags: int) -> None:
+    """One launch of the steal kernel, counted by the functions it does."""
+    from mythril_tpu_torch.laser.cuda import kernels
+
+    global launches, plan_launches, steal_launches
+    launches += 1
+    if flags & kernels.MESH_PLAN or not flags & kernels.MESH_MOVE:
+        plan_launches += 1
+    if flags & kernels.MESH_MOVE:
+        steal_launches += 1
+    kernels.launch_mesh_steal(a, flags)
+
+
 def occupancy_impl(st: StateBatch, n_shards: int, device="cuda") -> torch.Tensor:
     """Running lanes per shard, i32[n_shards], computed on the device
-    (K10 in its count-only mode on the card)."""
+    (the steal kernel counting only, on the card)."""
     dev = _build.check_on(device, st.pc)
     if st.pc.shape[0] % n_shards != 0:
         raise ValueError(f"lane count {st.pc.shape[0]} not divisible by n_shards {n_shards}")
@@ -215,10 +233,8 @@ def occupancy_impl(st: StateBatch, n_shards: int, device="cuda") -> torch.Tensor
         return occupancy_impl_plain(st, n_shards)
     from mythril_tpu_torch.laser.cuda import kernels
 
-    global plan_launches
     a = kernels.MeshArgs(st, n_shards)
-    plan_launches += 1
-    kernels.launch_mesh_plan(a, 0)
+    _launch(a, 0)
     return a.sh[:n_shards]
 
 
@@ -259,16 +275,15 @@ def steal_plan_plain(st: StateBatch, n_shards: int) -> StealPlan:
 
 
 def steal_plan(st: StateBatch, n_shards: int, device="cuda") -> StealPlan:
-    """The work-steal plan of every shard (K10 on the card)."""
+    """The work-steal plan of every shard (the steal kernel planning
+    only, on the card)."""
     dev = _build.check_on(device, st.pc)
     if dev.type == "cpu":
         return steal_plan_plain(st, n_shards)
     from mythril_tpu_torch.laser.cuda import kernels
 
-    global plan_launches
     a = kernels.MeshArgs(st, n_shards)
-    plan_launches += 1
-    kernels.launch_mesh_plan(a, kernels.MESH_PLAN)
+    _launch(a, kernels.MESH_PLAN)
     n = n_shards
     return StealPlan(a.export_.to(torch.bool), a.buf_pos, a.sh[2 * n:], a.sh[:n], a.sh[n:2 * n], a.mctl[1])
 
@@ -300,20 +315,19 @@ def steal_apply_plain(st: StateBatch, plan: StealPlan, n_shards: int) -> StateBa
 
 
 def steal_apply(st: StateBatch, plan: StealPlan, n_shards: int, device="cuda") -> StateBatch:
-    """Move the exported lanes of ``plan`` (K11 on a copy on the card)."""
+    """Move the exported lanes of ``plan`` (the steal kernel moving from
+    the given plan, ungated, on a copy on the card)."""
     dev = _build.check_on(device, st.pc, plan.buf_pos)
     if dev.type == "cpu":
         return steal_apply_plain(st, plan, n_shards)
     from mythril_tpu_torch.laser.cuda import kernels
 
-    global steal_launches
     out = _clone(st)
     a = kernels.MeshArgs(out, n_shards)
     a.export_.copy_(plan.export.to(torch.uint8))
     a.buf_pos.copy_(plan.buf_pos)
     a.sh[n_shards:2 * n_shards].copy_(plan.alive_c)
-    steal_launches += 1
-    kernels.launch_mesh_steal(a, gated=False)
+    _launch(a, kernels.MESH_MOVE)
     return out
 
 
@@ -338,7 +352,7 @@ def round_impl(cb, env, st: StateBatch, steps_per_round: int = 64, do_rebalance:
     """One round of the sync mesh tier: up to ``steps_per_round`` steps
     while some lane runs (``engine.run``: one K1 launch on the card), then,
     with ``do_rebalance``, the deal (K12), then the per-shard occupancy
-    (K10). Returns ``(st, occ)``; ``occ`` (i32[n_shards], on the device)
+    (the steal kernel counting). Returns ``(st, occ)``; ``occ`` (i32[n_shards], on the device)
     is the host's one fetch per round for quiescence and the next
     round's rebalance gate. Nothing here syncs."""
     if do_rebalance and n_shards < 2:
@@ -353,18 +367,15 @@ def round_impl(cb, env, st: StateBatch, steps_per_round: int = 64, do_rebalance:
 sharded_round = round_impl
 
 
-# -- the fused mesh loop's steal (K10 + K11, gated on the card) ---------
+# -- the fused mesh loop's steal (one launch, gated on the card) -------
 
 
 def steal_round(a) -> None:
-    """Between two rounds of the fused mesh loop: K10 plans and decides
-    (``mctl[0]``, counted into ``mctl[2..3]``), K11 moves the lanes when
-    it said so. ``a`` is the loop's ``kernels.MeshArgs``; both kernels
-    read the loop's control word and return once the loop has ended."""
+    """Between two rounds of the fused mesh loop, one launch of the steal
+    kernel: it plans, decides (``mctl[0]``, counted into ``mctl[2..3]``)
+    and moves the lanes when it said so. ``a`` is the loop's
+    ``kernels.MeshArgs``; the launch reads the loop's control word and
+    does nothing once the loop has ended."""
     from mythril_tpu_torch.laser.cuda import kernels
 
-    global plan_launches, steal_launches
-    plan_launches += 1
-    kernels.launch_mesh_plan(a, kernels.MESH_PLAN | kernels.MESH_GATE_SPREAD | kernels.MESH_ACCUM)
-    steal_launches += 1
-    kernels.launch_mesh_steal(a, gated=True)
+    _launch(a, kernels.MESH_STEAL_ROUND)

@@ -1,14 +1,17 @@
 """The mesh kernels' own logic against the plain twins, on the CPU.
 
-K10 (``mesh_plan``), K11 (``mesh_steal``), K12 (``mesh_deal``) and the
-shard count of K1's fork rank and K4's compaction are plain C++ over pointers
-in ``mythril_tpu_torch/csrc/{mesh,step,megakernel}.cuh``; compiled as
-host C++ (``csrc/host_emu.cpp``) with loops standing in for the grids,
-they run here on CPU tensors and are held bit for bit against the twins,
-which test_torch_mesh.py and test_torch_mesh_fused.py hold against the
-JAX reference. The emulated fused mesh loop follows ``run_fused_mesh``'s
-card loop launch for launch, control word and steal gate included. On
-the card, chip_smoke.py does the same with the real kernels."""
+The steal kernel (K10's counts and plan and K11's moves, one kernel),
+K12 (``mesh_deal``) and the shard count of K1's fork rank and K4's
+compaction are plain C++ over pointers in
+``mythril_tpu_torch/csrc/{mesh,step,megakernel}.cuh``; compiled as host
+C++ (``csrc/host_emu.cpp``), they run here on CPU tensors and are held
+bit for bit against the twins, which test_torch_mesh.py and
+test_torch_mesh_fused.py hold against the JAX reference. The steal
+kernel runs as its launch does, each part thread by thread between the
+barriers, in both thread orders and on several grids. The emulated fused
+mesh loop follows ``run_fused_mesh``'s card loop launch for launch,
+control word and steal gate included. On the card, chip_smoke.py does
+the same with the real kernels."""
 
 import ctypes
 import os
@@ -93,33 +96,38 @@ def _emu_epilogue(lib, cb, s, scratch, unsat, acc, pv, ctl, max_rounds, n, flags
                             _vp(gate), 2, 64, reverse) == 0
 
 
-def _emu_plan(lib, st, n, flags, ctl=None, mctl=None):
+def _emu_steal(lib, st, n, flags, plan=None, mctl=None, ctl=None, nblocks=1, nthreads=None, reverse=0):
+    """One emulated launch of the steal kernel on ``st`` in place, its
+    outputs pre-filled with a pattern (or ``plan``'s export, buf_pos and
+    alive_c, for the moves of a given plan). Returns (export, buf_pos,
+    sh, mctl)."""
     L = st.pc.shape[0]
-    export = torch.zeros(L, dtype=torch.uint8)
-    buf_pos = torch.zeros(L, dtype=torch.int32)
-    sh = torch.zeros(3 * n, dtype=torch.int32)
-    mctl = torch.zeros(4, dtype=torch.int32) if mctl is None else mctl
+    export = torch.full((L,), 0xA5, dtype=torch.uint8)
+    buf_pos = torch.full((L,), -7, dtype=torch.int32)
+    sh = torch.full((3 * n,), -9, dtype=torch.int32)
+    if plan is not None:
+        export.copy_(plan.export.to(torch.uint8))
+        buf_pos.copy_(plan.buf_pos)
+        sh[n:2 * n] = plan.alive_c
+    mctl = torch.tensor([-3, -5, 11, 13], dtype=torch.int32) if mctl is None else mctl
+    nthreads = nthreads or -(-L // 32) * 32
     pl = kernels.planes(st, 1, st.visited.shape[1])
-    assert lib.emu_mesh_plan(ctypes.byref(pl), n, flags, _vp(export), _vp(buf_pos), _vp(sh), _vp(mctl), _vp(ctl)) == 0
+    assert lib.emu_mesh_steal(ctypes.byref(pl), n, flags, _vp(export), _vp(buf_pos), _vp(sh), _vp(mctl), _vp(ctl),
+                              nblocks, nthreads, reverse) == 0
     return export, buf_pos, sh, mctl
 
 
-def _emu_steal(lib, st, n, export, buf_pos, sh, ctl=None, gate=None):
-    pl = kernels.planes(st, 1, st.visited.shape[1])
-    assert lib.emu_mesh_steal(ctypes.byref(pl), n, _vp(export), _vp(buf_pos), _vp(sh), _vp(ctl), _vp(gate)) == 0
-
-
-def _random_batch(seed, L=64, dense=True):
+def _random_batch(seed, L=64, dense=True, n=8):
     """Lanes with random alive/RUNNING flags and tagged rows; with
-    ``dense`` the alive lanes of each 8-lane shard form a prefix."""
+    ``dense`` the alive lanes of each of the ``n`` shards form a prefix."""
     r = np.random.default_rng(seed)
     cfg = batch.BatchConfig(lanes=L, stack_slots=4, memory_bytes=32, calldata_bytes=32, storage_slots=2,
                             code_len=64, tape_slots=8, path_slots=4, mem_sym_slots=2, ss_ring=4)
     st = batch.empty_batch(cfg, device="cpu")
-    per = L // 8
+    per = L // n
     alive = np.zeros(L, bool)
     if dense:
-        for s in range(8):
+        for s in range(n):
             alive[s * per: s * per + int(r.choice([0, 0, 1, 2, per, per - 1, 3]))] = True
     else:
         alive = r.random(L) < 0.4
@@ -132,6 +140,37 @@ def _random_batch(seed, L=64, dense=True):
         stack=torch.as_tensor(r.integers(-(1 << 31), 1 << 31, tuple(st.stack.shape), dtype=np.int64).astype(np.int32)),
         visited=torch.as_tensor(r.random(tuple(st.visited.shape)) < 0.2),
     )
+
+
+def _shaped_batch(kind, L, n, seed):
+    """A tagged batch of ``L`` lanes over ``n`` shards: ``ragged`` (each
+    shard a dense prefix of random length), ``sparse`` (alive anywhere),
+    ``skew`` (shards 0-1 full of running lanes, the rest empty: the skew
+    demos' steal), ``idle`` (no lane running), ``all_running``, or
+    ``full_receivers`` (shard 0 running, every other lane alive and
+    halted: the deficit is capped to 0, so nothing moves whatever the
+    spread)."""
+    st = _random_batch(seed, L, dense=kind != "sparse", n=n)
+    per = L // n
+    lane = torch.arange(L)
+    if kind == "skew":
+        alive = lane < 2 * per
+        status = torch.full((L,), batch.RUNNING, dtype=torch.int32)
+    elif kind == "idle":
+        alive, status = st.alive, torch.full((L,), batch.STOPPED, dtype=torch.int32)
+    elif kind == "all_running":
+        alive, status = torch.ones(L, dtype=torch.bool), torch.full((L,), batch.RUNNING, dtype=torch.int32)
+    elif kind == "full_receivers":
+        alive = torch.ones(L, dtype=torch.bool)
+        status = torch.where(lane < per, batch.RUNNING, batch.STOPPED).to(torch.int32)
+    else:
+        return st
+    return st._replace(alive=alive, status=status)
+
+
+# the emulated grids: (blocks, threads a block; None: the lanes rounded up to a warp)
+GRIDS = ((1, 1024), (3, None), (2, 1024), (1, None))
+SHAPES = [(L, n) for L in (64, 160, 512, 1024) for n in (1, 2, 8, 64) if L % n == 0]
 
 
 @pytest.mark.parametrize("n", [2, 8])
@@ -161,21 +200,73 @@ def test_sharded_step_run_launch_matches_twin(emu, name):
         _assert_same(got, want, f"{name} n=8 nthreads={nthreads}")
 
 
+def _check_steal_uses(emu, st, n, where):
+    """Every use of the steal kernel on ``st`` against the twins, on each
+    emulated grid in both thread orders: counts, plan, the moves of the
+    twin's plan, the fused steal round from nonzero counters, and a
+    fused launch of a stopped loop (which writes nothing)."""
+    plan = mesh.steal_plan_plain(st, n)
+    moved = int(plan.moved)
+    go = int(moved > 0 and int(plan.occ.max()) - int(plan.occ.min()) > 1)
+    moved_st = mesh.steal_apply_plain(st, plan, n)
+    untouched = (torch.full_like(plan.export, 0xA5, dtype=torch.uint8), torch.full_like(plan.buf_pos, -7))
+    for nblocks, nthreads in GRIDS:
+        for reverse in (0, 1):
+            at = f"{where} grid={nblocks}x{nthreads} reverse={reverse}"
+            kw = dict(nblocks=nblocks, nthreads=nthreads, reverse=reverse)
+            s = _clone(st)
+            export, buf_pos, sh, mctl = _emu_steal(emu, s, n, 0, **kw)
+            assert torch.equal(sh[:2 * n], torch.cat([mesh.occupancy_impl_plain(st, n), plan.alive_c])), at
+            assert (export.tolist(), buf_pos.tolist()) == tuple(t.tolist() for t in untouched), at
+            assert (sh[2 * n:] == -9).all() and mctl.tolist() == [-3, -5, 11, 13], at
+            _assert_same(s, st, f"{at} counts")
+            export, buf_pos, sh, mctl = _emu_steal(emu, s, n, kernels.MESH_PLAN, **kw)
+            assert torch.equal(export.bool(), plan.export) and torch.equal(buf_pos, plan.buf_pos), at
+            assert torch.equal(sh, torch.cat([plan.occ, plan.alive_c, plan.filled])), at
+            assert mctl.tolist() == [int(moved > 0), moved, 11, 13], at
+            _assert_same(s, st, f"{at} plan")
+            _emu_steal(emu, s, n, kernels.MESH_MOVE, plan=plan, **kw)
+            _assert_same(s, moved_st, f"{at} moves of a given plan")
+            s = _clone(st)
+            export, buf_pos, sh, mctl = _emu_steal(emu, s, n, kernels.MESH_STEAL_ROUND, **kw)
+            assert torch.equal(export.bool(), plan.export) and torch.equal(buf_pos, plan.buf_pos), at
+            assert torch.equal(sh, torch.cat([plan.occ, plan.alive_c, plan.filled])), at
+            assert mctl.tolist() == [go, moved, 11 + go, 13 + go * moved], at
+            _assert_same(s, moved_st if go else st, f"{at} steal round")
+            s = _clone(st)
+            stopped = torch.tensor([3, 0, 4, 1], dtype=torch.int32)
+            export, buf_pos, sh, mctl = _emu_steal(emu, s, n, kernels.MESH_STEAL_ROUND, ctl=stopped, **kw)
+            assert (export.tolist(), buf_pos.tolist()) == tuple(t.tolist() for t in untouched), at
+            assert (sh == -9).all() and mctl.tolist() == [-3, -5, 11, 13], at
+            _assert_same(s, st, f"{at} stopped")
+    return plan, go
+
+
 @pytest.mark.parametrize("seed", range(6))
 def test_mesh_plan_and_steal_logic_match_twin(emu, seed):
     st = _random_batch(seed, dense=seed % 3 != 2)
-    plan = mesh.steal_plan_plain(st, 8)
-    export, buf_pos, sh, mctl = _emu_plan(emu, st, 8, kernels.MESH_PLAN)
-    assert torch.equal(export.bool(), plan.export) and torch.equal(buf_pos, plan.buf_pos)
-    assert torch.equal(sh, torch.cat([plan.occ, plan.alive_c, plan.filled]))
-    assert mctl.tolist() == [int(int(plan.moved) > 0), int(plan.moved), 0, 0]
-    # count-only mode is occupancy_impl
-    _e, _b, sh0, _m = _emu_plan(emu, st, 8, 0)
-    assert torch.equal(sh0[:8], mesh.occupancy_impl_plain(st, 8))
-    if int(plan.moved):
-        s = _clone(st)
-        _emu_steal(emu, s, 8, export, buf_pos, sh)
-        _assert_same(s, mesh.steal_apply_plain(st, plan, 8), f"seed {seed} steal")
+    _check_steal_uses(emu, st, 8, f"seed {seed}")
+
+
+@pytest.mark.parametrize("kind", ["ragged", "sparse", "skew", "idle", "all_running", "full_receivers"])
+@pytest.mark.parametrize("L,n", SHAPES, ids=[f"L{L}-n{n}" for L, n in SHAPES])
+def test_steal_kernel_uses_match_twins(emu, L, n, kind):
+    """Every use of the steal kernel at lane counts 64-1024 over 1-64
+    shards, so that a shard's lanes are below a warp (per 1, 8, 16, 20),
+    not a multiple of one (per 20, 80, 160) and whole warps, on each kind
+    of batch."""
+    st = _shaped_batch(kind, L, n, L + n)
+    plan, go = _check_steal_uses(emu, st, n, f"{kind} L={L} n={n}")
+    moved = int(plan.moved)
+    if kind == "skew":  # shards 0-1 keep their fair share of the 2 * per running lanes
+        per, base = L // n, 2 * L // n // n
+        rem = 2 * per - base * n
+        want = 2 * per - 2 * base - min(rem, 2) if n > 1 else 0
+        assert moved == want and go == int(want > 0 and per - base > 1), (moved, go, plan.occ.tolist())
+    if kind in ("idle", "all_running", "full_receivers") or n == 1:
+        assert moved == 0 and not go
+    if kind == "full_receivers" and n > 1 and L // n > 1:
+        assert int(plan.occ.max()) - int(plan.occ.min()) > 1
 
 
 def test_mesh_plan_gate_and_counters(emu):
@@ -185,20 +276,30 @@ def test_mesh_plan_gate_and_counters(emu):
         alive = torch.zeros(64, dtype=torch.bool)
         alive[lanes] = True
         st = st._replace(alive=alive, status=torch.zeros(64, dtype=torch.int32))
-        mctl = torch.tensor([9, 9, 5, 7], dtype=torch.int32)
-        flags = kernels.MESH_PLAN | kernels.MESH_GATE_SPREAD | kernels.MESH_ACCUM
-        export, buf_pos, sh, _ = _emu_plan(emu, st, 8, flags, mctl=mctl)
-        moved = int(mesh.steal_plan_plain(st, 8).moved)
-        assert mctl.tolist() == [go, moved, 5 + go, 7 + go * moved]
-        s = _clone(st)
-        _emu_steal(emu, s, 8, export, buf_pos, sh, gate=mctl)
-        assert torch.equal(s.alive, st.alive) == (not go)
-    # a stopped loop's K10 and K11 touch nothing
+        for reverse in (0, 1):
+            mctl = torch.tensor([9, 9, 5, 7], dtype=torch.int32)
+            s = _clone(st)
+            _emu_steal(emu, s, 8, kernels.MESH_STEAL_ROUND, mctl=mctl, nblocks=2, reverse=reverse)
+            moved = int(mesh.steal_plan_plain(st, 8).moved)
+            assert mctl.tolist() == [go, moved, 5 + go, 7 + go * moved]
+            assert torch.equal(s.alive, st.alive) == (not go)
+    # a gated no-steal with moved > 0: shard 7's one extra lane against shard 0's fair share of one more
+    st = _shaped_batch("ragged", 64, 8, 0)
+    st = st._replace(alive=torch.arange(64) % 8 < 4 + (torch.arange(64) >= 56).to(torch.int64),
+                     status=torch.zeros(64, dtype=torch.int32))
+    plan = mesh.steal_plan_plain(st, 8)
+    assert int(plan.moved) == 1 and int(plan.occ.max()) - int(plan.occ.min()) == 1
+    mctl = torch.zeros(4, dtype=torch.int32)
+    s = _clone(st)
+    _emu_steal(emu, s, 8, kernels.MESH_STEAL_ROUND, mctl=mctl, nblocks=3)
+    assert mctl.tolist() == [0, 1, 0, 0]
+    _assert_same(s, st, "gated no-steal")
+    # a stopped loop's launch touches nothing
     st = _random_batch(1)
     mctl = torch.zeros(4, dtype=torch.int32)
-    _e, _b, sh, _ = _emu_plan(emu, st, 8, kernels.MESH_PLAN, ctl=torch.tensor([3, 0, 0, 0], dtype=torch.int32),
-                              mctl=mctl)
-    assert not sh.any() and not mctl.any()
+    _e, _b, sh, _ = _emu_steal(emu, st, 8, kernels.MESH_PLAN, ctl=torch.tensor([3, 0, 0, 0], dtype=torch.int32),
+                               mctl=mctl)
+    assert (sh == -9).all() and not mctl.any()
 
 
 @pytest.mark.parametrize("n", [8, 4, 2])
@@ -272,9 +373,11 @@ def test_sharded_compaction_logic_gate(emu, n, gate):
         assert not acc.any() and not pv.any() and ctl.tolist() == [7, 1, 7, 1]
 
 
-def _emu_fused_mesh(lib, cb, st, n, max_rounds, steps_per_round, with_solve, pool, with_stats):
+def _emu_fused_mesh(lib, cb, st, n, max_rounds, steps_per_round, with_solve, pool, with_stats, launches=None):
     """run_fused_mesh's card loop, with the emulated kernels: one K1
-    launch a round (with stats its stats instance), K3, K4, K10, K11, K4."""
+    launch a round (with stats its stats instance), K3, K4, one launch of
+    the steal kernel (plan, decision and gated moves), K4. ``launches``
+    (a dict) counts the launches by kernel."""
     L = st.pc.shape[0]
     s = _clone(st)
     hist = torch.zeros(256 if with_stats else 1, dtype=torch.int32)
@@ -292,9 +395,9 @@ def _emu_fused_mesh(lib, cb, st, n, max_rounds, steps_per_round, with_solve, poo
             pl = kernels.planes(s, 1, cb.code.shape[1])
             assert lib.emu_unsat(ctypes.byref(pl), ctypes.byref(kernels.pool_struct(pool)), _vp(unsat), 0) == 0
         _emu_epilogue(lib, cb, s, scratch, unsat, acc, pv, ctl, max_rounds, n, 0)
-        flags = kernels.MESH_PLAN | kernels.MESH_GATE_SPREAD | kernels.MESH_ACCUM
-        export, buf_pos, sh, _ = _emu_plan(lib, s, n, flags, ctl=ctl, mctl=mctl)
-        _emu_steal(lib, s, n, export, buf_pos, sh, ctl=ctl, gate=mctl)
+        _emu_steal(lib, s, n, kernels.MESH_STEAL_ROUND, mctl=mctl, ctl=ctl, nblocks=2)
+        if launches is not None:
+            launches["steal"] = launches.get("steal", 0) + 1
         _emu_epilogue(lib, cb, s, scratch, unsat, acc, pv, ctl, max_rounds, n,
                       kernels.EPI_COMMIT | kernels.EPI_COMPACT_ONLY, mctl)
     return s, megakernel._mesh_info(ctl[0], acc, mctl[2], mctl[3], s, n), pv, hist
@@ -324,14 +427,16 @@ def test_fused_mesh_loop_logic_matches_twin(emu, name):
 @pytest.mark.parametrize("with_stats", [True, False], ids=["stats_on", "stats_off"])
 @pytest.mark.parametrize("n", [1, 2])
 def test_fused_mesh_loop_one_launch_a_round(emu, n, with_stats):
-    """The fused mesh loop as the card runs it, one K1 launch a round with
-    the histogram folded inside it, against the twin's loop over one and
-    two lane shards, stats on and off: every plane, info, pruned_visited
-    and the histogram."""
+    """The fused mesh loop as the card runs it, one K1 launch and one
+    steal launch a round, the histogram folded inside K1, against the
+    twin's loop over one and two lane shards, stats on and off: every
+    plane, info, pruned_visited and the histogram."""
     cb, st = _inputs("bectoken", 9)
     pool = inloop_solve.empty_pool("cpu")
     want = megakernel.run_fused_mesh_plain(cb, st, n, 3, 24, True, pool, with_stats)
-    s, info, pv, hist = _emu_fused_mesh(emu, cb, st, n, 3, 24, True, pool, with_stats)
+    launches = {}
+    s, info, pv, hist = _emu_fused_mesh(emu, cb, st, n, 3, 24, True, pool, with_stats, launches)
+    assert launches == {"steal": 3}  # one steal launch a round: no separate plan or move
     _assert_same(s, want.st, f"n={n} stats={with_stats}")
     assert info.tolist() == want.info.tolist()
     assert torch.equal(pv, want.pruned_visited) and torch.equal(hist, want.hist)
