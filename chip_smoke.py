@@ -41,7 +41,8 @@ phases that each print one JSON line:
    XFER_MAX_SEGS, which must raise KernelError;
 6. K5 solve against its twin on CNFs compiled from seeded formulas, on
    every (vars, clauses) bucket at 8 and 64 instances, flips 0/64/4096;
-   every SAT row must satisfy its CNF and agree with the flips=0 phase;
+   every SAT row must satisfy its CNF and agree with the flips=0 phase
+   (``compare_solve``);
 7. the whole analysis, SymExecWrapper(strategy="cuda-batch") +
    fire_lasers, on becstress (2 tx, 60 s) and BECToken (3 tx, 120 s):
    the issue sets must be [101@8] and [101@28, 101@104], with device
@@ -51,7 +52,10 @@ phases that each print one JSON line:
    failed device solve; the first K5 batches of the runs are replayed
    through the twin;
 8. the times of K5-K7 against their twins, bounds, the host link and a
-   per-plane copy_ sequence; K6 and each K7 call also queued behind a
+   per-plane copy_ sequence; K5's time a sweep at the main path's batch
+   and at the largest bucket with 64 instances, at its own block size
+   and at 256, 512 and 1024 threads, with its resources per bucket
+   (``time_solve_per_sweep``, line ``timing_k5``); K6 and each K7 call also queued behind a
    spinning kernel (ms_device), K7's calls beside torch.cat of the same
    byte views (library_ms), and K6/K7's registers and spills;
 9. K8 (the retired-opcode histogram, standalone) against its twin after
@@ -86,12 +90,15 @@ phases that each print one JSON line:
    the fused loop's steal_round from nonzero counters, and a steal round
    of a stopped loop, which writes nothing) against the twins, at 64,
    160, 512 and 1024 lanes over 1, 2, 8 and 64 shards where they divide,
-   on six kinds of tagged batches; K12 (deal) against its twin, K1 and
-   K4 with the shard count, run_fused_mesh (4 rounds x 256 steps, every
+   on six kinds of tagged batches; K12 (deal) against its twin on the
+   same batches and on three deals where no lane moves, the kept scratch
+   filled with a pattern and checked untouched past the dealt rows
+   (``compare_deal_kernel``), K1 and K4 with the shard count, run_fused_mesh (4 rounds x 256 steps, every
    seed in shard 0, under sync debug mode "error", one K1 launch and one
    steal launch a round) on becstress (stats on) and BECToken, and one
    sharded_round with the deal (one K1 launch, one counting steal
-   launch, K12, no K9), each against the twin's run; the
+   launch, one K12 call that is one kernel launch as mesh.cu counts
+   them, no K9), each against the twin's run; the
    skew demos (MULTICHIP_r06's 64 lanes with 16 spinning on shards 0-1:
    one steal of 12 lanes, occupancy [2]*8, 4096 steps; and 512 lanes
    with 128 spinning: 96 lanes, [16]*8), held against the twin too;
@@ -101,8 +108,10 @@ phases that each print one JSON line:
    degraded round, one steal launch a round; then the steal kernel's
    times in each use on the 96-lane steal state and on a gated no-steal
    state (through its entry point, and the launch alone), its registers
-   and the ptxas lines of mesh.cu, K12's time, and the mesh super-round
-   beside run_fused on the same seed.
+   and the ptxas lines of mesh.cu; K12's time on the 128-lane steal
+   state (its launch alone, behind a spinning kernel, through rebalance
+   and within sharded_round, line ``timing_deal``), and the mesh
+   super-round beside run_fused on the same seed.
 
 The last three lines are the kernels JSON (K1-K12), the card's name and
 power limit, and {"ok": true, "device": {...}}. Any mismatch or
@@ -951,27 +960,21 @@ def check_late_handoff():
                              f"was held to {EXPECTED_ISSUES['bectoken']}: {runs}")
 
 
-def run_host_half(dev, cfg, smi, budgets=(("becstress", 2, 60), ("bectoken", 3, 120)),
-                  formula_widths=(8, 32, 96, 192), solve_flips=(0, 64, 4096)):
-    """Phases 5-8: K6/K7 and K5 against their twins, the whole analysis
-    (SymExecWrapper + fire_lasers) on becstress and BECToken, and the
-    times of K5-K7. Returns the kernels line's entries for K5-K7."""
+def compare_solve(dev, max_err, formula_widths=(8, 32, 96, 192), solve_flips=(0, 64, 4096)):
+    """Phase 6: K5 against its twin on CNFs compiled from seeded formulas,
+    on every (vars, clauses) bucket at 8 and 64 instances, at each of
+    ``solve_flips``; every SAT row must satisfy its CNF and agree with the
+    flips=0 phase. Adds K5's error into ``max_err``; returns the cases
+    (bucket, operands, flips, seed, sweeps). Alone:
+
+        python3 -c 'import chip_smoke, torch; chip_smoke.compare_solve(torch.device("cuda"), {"K5": 0})'
+    """
     import random
 
     import numpy as np
     import torch
 
-    from mythril_tpu_torch.disassembler.asm import assemble
-    from mythril_tpu_torch.laser.cuda import (
-        _build, backend, batch, convert, engine, inloop_solve, keccak, megakernel, solver, solver_cache, transfer,
-    )
-    from mythril_tpu_torch.laser.cuda.batch import StateBatch
-
-    on_card = dev.type == "cuda"
-
-    def sync():
-        if on_card:
-            torch.cuda.synchronize()
+    from mythril_tpu_torch.laser.cuda import convert, solver
 
     def diff(a, b):
         """max |a - b| over two tensors (0 when equal)."""
@@ -979,13 +982,6 @@ def run_host_half(dev, cfg, smi, budgets=(("becstress", 2, 60), ("bectoken", 3, 
             return 0
         return max(1, int((a.to(torch.int64) - b.to(torch.int64)).abs().max()))
 
-    max_err = {"K5": 0, "K6": 0, "K7": 0}
-    small = tuple(f for f in StateBatch._fields if f not in transfer._SKIP_DOWN and f not in transfer._BIG_DOWN)
-
-    # ---- 5. K6 / K7 against their twins at cfg ---------------------------
-    xfer_cases = compare_transfer(dev, cfg, max_err)
-
-    # ---- 6. K5 against its twin ------------------------------------------
     from mythril_tpu_torch.smt import Not, Or, UGT, ULT, symbol_factory
 
     def formula_sets(width, n, seed):
@@ -1061,6 +1057,96 @@ def run_host_half(dev, cfg, smi, budgets=(("becstress", 2, 60), ("bectoken", 3, 
                     raise AssertionError(f"K5 differs from its twin or is unsound at bucket ({V_b}, {C_b}), "
                                          f"I={lits.shape[0]}, flips={flips}")
                 k5_cases.append(((V_b, C_b), ops, flips, seed, sweeps))
+    return k5_cases
+
+
+def time_solve_per_sweep(dev, smi, cases, max_err, reps=20):
+    """K5's time a sweep on each case (label: (operands, flips, seed)), at
+    the bucket's own block size and at 256, 512 and 1024 threads, each
+    launch's outputs first held against the twin's (its error added into
+    ``max_err``): ``ms`` (CUDA events around the launch) and
+    ``ms_device`` (queued behind a spinning kernel), each also divided by
+    the case's largest sweep count; with the launch's resources and the
+    ptxas lines of solve.cu (line ``timing_k5``). Returns the rows. The
+    CPU rehearsal times the twin once (host time, not kept)."""
+    import torch
+
+    from mythril_tpu_torch.laser.cuda import _build, kernels, solver
+
+    on_card = dev.type == "cuda"
+    time_ms = functools.partial(events_ms, dev, reps=reps)
+    rows = {}
+    for label, (ops, flips, seed) in cases.items():
+        I_, C_, _ = ops[0].shape
+        V_ = ops[2].shape[1]
+        want = solver.solve_plain(*ops, flips, seed)
+        row = {"I": int(I_), "V": int(V_), "C": int(C_), "flips": flips, "sweeps_max": int(want[2].max()),
+               "bytes": int(sum(t.numel() * t.element_size() for t in ops) + I_ * (4 + V_ + 4))}
+        for threads in (0, 256, 512, 1024) if on_card else (0,):
+            outs = [torch.empty_like(w) for w in want]
+
+            def call(_, threads=threads, ops=ops, flips=flips, seed=seed, outs=outs):
+                if on_card:
+                    kernels.launch_solve(*ops, *outs, flips, seed, threads)
+                else:
+                    for o, w in zip(outs, solver.solve(*ops, flips, seed, device=dev)):
+                        o.copy_(w)
+
+            call(None)
+            err = max(tensor_diff(a, b) for a, b in zip(outs, want))
+            max_err["K5"] = max(max_err["K5"], err)
+            if err:
+                raise AssertionError(f"K5 at {threads or 'its own'} threads differs from the twin on {label}")
+            ms_, dev_ms = time_ms(call), time_ms(call, spin=True)
+            info = kernels.solve_info(dev, C_, V_, threads) if on_card else {}
+            row[f"t{threads}" if threads else "own"] = {
+                "threads": info.get("threads_per_block"), "ms": round(ms_, 6), "ms_device": round(dev_ms, 6),
+                "ms_per_sweep": round(ms_ / row["sweeps_max"], 6),
+                "ms_device_per_sweep": round(dev_ms / row["sweeps_max"], 6), "resources": info}
+        rows[label] = row
+    log = os.path.join(_build.BUILD_DIR, "solve.log")
+    ptxas = ([ln.strip() for ln in open(log) if "registers" in ln or "spill" in ln or "smem" in ln]
+             if on_card and os.path.exists(log) else [])
+    emit({"phase": "timing_k5", "gpu": smi, "per_sweep": rows, "ptxas_solve_cu": ptxas,
+          "threads_by_bucket": {f"{v}x{c}": kernels.solve_info(dev, c, v)["threads_per_block"]
+                                for v, c in solver.shape_ladder()} if on_card else None})
+    return rows
+
+
+def run_host_half(dev, cfg, smi, budgets=(("becstress", 2, 60), ("bectoken", 3, 120)),
+                  formula_widths=(8, 32, 96, 192), solve_flips=(0, 64, 4096)):
+    """Phases 5-8: K6/K7 and K5 against their twins, the whole analysis
+    (SymExecWrapper + fire_lasers) on becstress and BECToken, and the
+    times of K5-K7. Returns the kernels line's entries for K5-K7."""
+    import torch
+
+    from mythril_tpu_torch.disassembler.asm import assemble
+    from mythril_tpu_torch.laser.cuda import (
+        _build, backend, convert, engine, inloop_solve, keccak, megakernel, solver, solver_cache, transfer,
+    )
+    from mythril_tpu_torch.laser.cuda.batch import StateBatch
+
+    on_card = dev.type == "cuda"
+
+    def sync():
+        if on_card:
+            torch.cuda.synchronize()
+
+    def diff(a, b):
+        """max |a - b| over two tensors (0 when equal)."""
+        if torch.equal(a, b):
+            return 0
+        return max(1, int((a.to(torch.int64) - b.to(torch.int64)).abs().max()))
+
+    max_err = {"K5": 0, "K6": 0, "K7": 0}
+    small = tuple(f for f in StateBatch._fields if f not in transfer._SKIP_DOWN and f not in transfer._BIG_DOWN)
+
+    # ---- 5. K6 / K7 against their twins at cfg ---------------------------
+    xfer_cases = compare_transfer(dev, cfg, max_err)
+
+    # ---- 6. K5 against its twin ------------------------------------------
+    k5_cases = compare_solve(dev, max_err, formula_widths, solve_flips)
+    ladder = solver.shape_ladder()
 
     # ---- 7. the whole analysis -------------------------------------------
     from mythril_tpu_torch.analysis.security import fire_lasers
@@ -1318,6 +1404,11 @@ def run_host_half(dev, cfg, smi, budgets=(("becstress", 2, 60), ("bectoken", 3, 
     I5, V5 = ops5[2].shape
     bytes5 = sum(t.numel() * t.element_size() for t in ops5) + I5 * (4 + V5 + 4)
     sweeps5 = solver.solve(*ops5, flips5, seed5, device=dev)[2]
+    # K5 a sweep: at the main path's batch and at the largest bucket with
+    # 64 instances, both at SOLVE_FLIPS
+    big = [c for c in k5_cases if c[0] == ladder[-1] and c[1][0].shape[0] == 64 and c[2] == backend.SOLVE_FLIPS]
+    k5_sweeps = time_solve_per_sweep(dev, smi, {"main_path": (ops5, flips5, seed5),
+                                                "largest_bucket_I64": big[0][1:4]}, max_err)
 
     # K6/K7 at the first multi-lane batch the analysis uploaded/downloaded
     nb6 = first_up[0] if first_up else xfer_cases["tape_sliced"][0]
@@ -1437,8 +1528,9 @@ def run_host_half(dev, cfg, smi, budgets=(("becstress", 2, 60), ("bectoken", 3, 
     # padded, zero-filled planes from one packed buffer. K7's library_ms
     # is torch.cat of the same byte views, a call per download.
     return [
-        entry("K5", "K5 solve", "mythril_tpu_torch/csrc/solve.cu", "mythril_tpu/laser/tpu/solver_jax.py:457",
-              ms5, plain5, bytes5),
+        dict(entry("K5", "K5 solve", "mythril_tpu_torch/csrc/solve.cu", "mythril_tpu/laser/tpu/solver_jax.py:457",
+                   ms5, plain5, bytes5), sweeps_max=int(sweeps5.max()), ms_per_sweep=round(ms5 / int(sweeps5.max()), 6),
+             largest_bucket_I64={k: v for k, v in k5_sweeps["largest_bucket_I64"].items() if k != "bytes"}),
         dict(entry("K6", "K6 unpack", "mythril_tpu_torch/csrc/transfer.cu", "mythril_tpu/laser/tpu/transfer.py:236",
                    ms6, plain6, bytes6), ms_device=round(ms6_device, 6)),
         dict(entry("K7", "K7 pack", "mythril_tpu_torch/csrc/transfer.cu", "mythril_tpu/laser/tpu/transfer.py:410",
@@ -2087,6 +2179,71 @@ def compare_steal_kernel(dev, cfg):
     return err10, err11, cases
 
 
+def byte_rows(x):
+    """A plane's bytes, a row a lane."""
+    import torch
+
+    return x.reshape(x.shape[0], -1).view(torch.uint8)
+
+
+def deal_diff(dev, st, n):
+    """K12 (its launch, uncounted) on a copy of ``st`` against the twin:
+    the order, every plane, and the kept scratch batch, filled with a
+    pattern before, untouched past the rows that move (all of it when
+    none moves). Returns (error, where, rows dealt)."""
+    import torch
+
+    from mythril_tpu_torch.laser.cuda import batch, kernels, mesh
+
+    L = st.pc.shape[0]
+    order_t = mesh.deal_order_plain(st, n)
+    want = batch.StateBatch(*(x[order_t] for x in st))
+    dealt = int((order_t != torch.arange(L, device=order_t.device)).sum())
+    s = clone_batch(st)
+    if dev.type != "cuda":
+        return batch_diff(mesh.deal_(s, n, device=dev) if n > 1 else want, want) + (dealt,)
+    sc = kernels.DealScratch.get(s)
+    for x in sc.scratch:
+        byte_rows(x).fill_(0xA5)
+    order = kernels.launch_mesh_deal(s, n).clone()
+    err, where = batch_diff(s, want)
+    err = max(err, tensor_diff(order.to(torch.int64), order_t))
+    for name, x in zip(batch.StateBatch._fields, sc.scratch):
+        if not bool((byte_rows(x)[dealt:] == 0xA5).all()):
+            err, where = max(err, 1), f"scratch {name} written past row {dealt}"
+    return err, where, dealt
+
+
+def compare_deal_kernel(dev, cfg):
+    """K12 against the twin (deal_diff) on the steal kernel's batches
+    (64-1024 lanes over 1-64 shards, six kinds at cfg's widths) and on
+    three deals where no lane moves: one shard with its running lanes
+    first, a lane a shard with the running lanes first, and two lanes a
+    shard with each shard's first lane running. Returns the error."""
+    import numpy as np
+
+    rng = np.random.default_rng(20261020)
+    err = cases = dealt = 0
+    for lanes, n in STEAL_SHAPES:
+        for kind in STEAL_KINDS:
+            e, where, d = deal_diff(dev, steal_case(cfg, dev, lanes, n, kind, rng), n)
+            cases += 1
+            dealt += d
+            err = max(err, e)
+            if e:
+                raise AssertionError(f"K12 differs from the twin at {lanes} lanes over {n} shards ({kind}): {where}")
+    identity = {"one_shard": (512, 1, [200], 50), "a_lane_a_shard": (64, 64, [1] * 37 + [0] * 27, 0),
+                "two_lanes_a_shard": (128, 64, [1] * 64, 0)}
+    for label, (lanes, n, running, halted) in identity.items():
+        e, where, d = deal_diff(dev, tagged_batch(cfg._replace(lanes=lanes), dev, n, running, halted), n)
+        err = max(err, e, d)
+        if e or d:
+            raise AssertionError(f"K12's identity deal {label} moved {d} rows or differs: {where}")
+    emit({"phase": "compare", "kernel": "K12 deal", "shapes": STEAL_SHAPES, "kinds": list(STEAL_KINDS),
+          "batches": cases, "rows_dealt": dealt, "identity_deals": list(identity), "err": err, "ok": not err})
+    return err
+
+
 def time_steal_kernel(dev, cfg, n, reps=20):
     """The steal kernel's times at cfg over n shards, on the 96-lane steal
     state (shards 0-1 full of running lanes) and on a gated no-steal state
@@ -2198,6 +2355,7 @@ def run_mesh(dev, cfg, smi, rounds=4, steps_per_round=256, n_shards=8, e2e=("bec
     # ---- 12a. the steal kernel (K10/K11) and K12 alone; K1 and K4 with a shard count
     err10, err11, _cases = compare_steal_kernel(dev, cfg)
     max_err["K10"], max_err["K11"] = max(max_err["K10"], err10), max(max_err["K11"], err11)
+    max_err["K12"] = max(max_err["K12"], compare_deal_kernel(dev, cfg))
     cases = {kind: steal_case(cfg, dev, L, n, kind, rng) for kind in ("skew", "capacity", "ragged")}
     for name, st in cases.items():
         err10, err11, where11, pt, _go = steal_uses_diff(dev, st, n)
@@ -2297,11 +2455,15 @@ def run_mesh(dev, cfg, smi, rounds=4, steps_per_round=256, n_shards=8, e2e=("bec
     # ---- 12c. one sync mesh round (the deal) against the twin's --------------
     cb_r, st_r = results["bectoken"][0], results["bectoken"][1]
     sync()
+    c_launches0 = kernels.mesh_kernel_launches() if on_card else None
     zero_counts()
     out_k, occ_k = mesh.sharded_round(cb_r, None, st_r, steps_per_round=steps_per_round, do_rebalance=True,
                                       n_shards=n, device=dev)
     sync()
     sync_counts = read_counts()
+    if on_card:  # the kernel launches mesh.cu made, counted in C where each is launched
+        c_launches1 = kernels.mesh_kernel_launches()
+        sync_counts["mesh_cu_launches"] = {k: c_launches1[k] - c_launches0[k] for k in c_launches1}
     out_t, occ_t = mesh.round_impl_plain(cb_r, st_r, steps_per_round, True, n)
     err, where = batch_diff(out_k, out_t)
     err = max(err, tensor_diff(occ_k, occ_t))
@@ -2312,10 +2474,12 @@ def run_mesh(dev, cfg, smi, rounds=4, steps_per_round=256, n_shards=8, e2e=("bec
         raise AssertionError(f"sharded_round differs from the twin: {where}")
     # the round's slice is one K1 launch (no K9), then the deal and the
     # occupancy: one steal-kernel launch that counts and moves nothing
+    # (the deal: one K12 call, one kernel launch of mesh.cu's deal)
     if on_card and (min(sync_counts[k] for k in ("K1", "K10", "K12")) <= 0 or sync_counts["K1"] != 1
-                    or sync_counts["K9"] or sync_counts["mesh_steal"] != 1 or sync_counts["K11"]):
-        raise AssertionError(f"the sync mesh round did not launch one K1, one counting steal kernel and K12: "
-                             f"{sync_counts}")
+                    or sync_counts["K9"] or sync_counts["mesh_steal"] != 1 or sync_counts["K11"]
+                    or sync_counts["K12"] != 1 or sync_counts["mesh_cu_launches"] != {"steal": 1, "deal": 1}):
+        raise AssertionError(f"the sync mesh round did not launch one K1, one counting steal kernel and one "
+                             f"K12 kernel: {sync_counts}")
 
     # ---- 12d. the skew demos ------------------------------------------------
     loop_code = assemble(LOOP_SRC)
@@ -2362,18 +2526,29 @@ def run_mesh(dev, cfg, smi, rounds=4, steps_per_round=256, n_shards=8, e2e=("bec
     emit({"phase": "timing_steal_kernel", "gpu": smi, "lanes": L, "shards": n, "row_bytes": rb,
           "times": steal_times, "plain_ms": {"steal_plan": plain10, "steal_apply": plain11},
           "resources": kernels.mesh_steal_info(dev) if on_card else None, "ptxas_mesh_cu": ptxas})
+    # K12 on the steal state: its launch alone on a fresh copy (events
+    # around it; ms_device behind a spinning kernel), through rebalance
+    # (a clone, then the deal in place) and within sharded_round (256 K1
+    # steps on BECToken, the deal, the occupancy), beside the round
+    # without the deal
     if on_card:
-        def prep12():
-            return (clone_batch(ss), batch.StateBatch(*(torch.empty_like(x) for x in ss)),
-                    torch.empty(L, dtype=torch.int32, device=dev))
-
-        ms12 = time_ms(lambda a: kernels.launch_mesh_deal(a[0], a[1], n, a[2]), prep12)
+        ms12 = time_ms(lambda a: kernels.launch_mesh_deal(a, n), lambda: clone_batch(ss))
+        ms12_device = time_ms(lambda a: kernels.launch_mesh_deal(a, n), lambda: clone_batch(ss), spin=True)
     else:
-        ms12 = time_ms(lambda _: mesh.rebalance(ss, n, device=dev))
+        ms12 = ms12_device = time_ms(lambda _: mesh.rebalance(ss, n, device=dev))
+    rebalance_ms = time_ms(lambda _: mesh.rebalance(ss, n, device=dev))
+    round_ms = {f"do_rebalance_{d}": round(time_ms(lambda _, d=d: mesh.sharded_round(
+        cb_r, None, st_r, steps_per_round=steps_per_round, do_rebalance=d, n_shards=n, device=dev), reps=5), 6)
+        for d in (True, False)}
     plain12 = time_ms(lambda _: mesh.rebalance_plain(ss, n), reps=5)
     order = mesh.deal_order_plain(ss, n)
     dealt = int((order != torch.arange(L, device=dev)).sum())
-    bytes12 = L * (1 + 4) + dealt * 2 * rb
+    bytes12 = 9 * L + dealt * 2 * rb  # the plan's 5 bytes a lane and order's 4; each dealt row read and written once
+    emit({"phase": "timing_deal", "gpu": smi, "lanes": L, "shards": n, "rows_dealt": dealt, "row_bytes": rb,
+          "ms": round(ms12, 6), "ms_device": round(ms12_device, 6), "rebalance_ms": round(rebalance_ms, 6),
+          "sharded_round_ms": round_ms, "plain_ms": round(plain12, 6),
+          "bound_ms": round(bytes12 / HBM_BYTES_PER_S * 1e3, 9),
+          "resources": kernels.mesh_deal_info(dev) if on_card else None})
 
     cb_w, st_w = results["becstress"][0], results["becstress"][1]
 
@@ -2430,9 +2605,10 @@ def run_mesh(dev, cfg, smi, rounds=4, steps_per_round=256, n_shards=8, e2e=("bec
                    "mythril_tpu/laser/tpu/mesh.py:178", e2e_counts["K11"], sr.get("ms", 0.0), plain11,
                    sr.get("bound_ms", 0.0), by11, sr.get("launch_ms")),
              steal_round_ms=round_ms, steal_kernel_launches=kernel_launches, moved=moved),
-        entry("K12", "K12 mesh_deal", "mythril_tpu_torch/csrc/mesh.cu",
-              "mythril_tpu/laser/tpu/mesh.py:83", sync_counts["K12"], ms12, plain12,
-              bytes12 / HBM_BYTES_PER_S * 1e3, by12),
+        dict(entry("K12", "K12 mesh_deal", "mythril_tpu_torch/csrc/mesh.cu",
+                   "mythril_tpu/laser/tpu/mesh.py:83", sync_counts["K12"], ms12, plain12,
+                   bytes12 / HBM_BYTES_PER_S * 1e3, by12),
+             ms_device=round(ms12_device, 6), rebalance_ms=round(rebalance_ms, 6), rows_dealt=dealt),
     ], {"K1": max_err["K1"], "K4": max_err["K4"]}
 
 def launch_counters():

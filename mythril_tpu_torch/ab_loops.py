@@ -17,24 +17,33 @@ through that checkout's own entry points:
 - one ``mesh.steal_round`` (the fused mesh loop's work-steal) over 8
   shards at ``DEFAULT_BATCH_CFG``, on the 96-lane steal state (shards 0-1
   full of running lanes) and on a gated no-steal state (moved 1, spread
-  1), each call on a fresh copy made outside the timed region.
+  1), each call on a fresh copy made outside the timed region;
+- the deal (K12) over 8 shards on the 128-lane steal state (shards 0-1
+  full of running lanes), through ``mesh.rebalance`` and as its kernel
+  launch alone on a fresh copy (each checkout's own launch call);
+- the CNF decider (K5), ``solver.solve`` at ``SOLVE_FLIPS``, on the
+  strategy's warmup batch (8 copies of its one-byte formula, the
+  smallest bucket), on 8 instances of the smallest bucket and on 64 of
+  the largest, compiled from seeded formulas.
 
 Each item is called once to warm up, then ``--reps`` times: ``wall_ms``
 is the host clock from the call to the end of a ``synchronize()`` after
 it, ``enqueue_ms`` the host clock until the call returns (the card may
 still be running), ``device_ms`` the CUDA events recorded around the
-call on its stream (for the steal rounds also ``spin_device_ms``, the
-same queued behind a spinning kernel: the device's own time).
+call on its stream (for the steal rounds, the deal and the decider also
+``spin_device_ms``, the same queued behind a spinning kernel: the
+device's own time).
 ``launches`` are the K1 launches (and of those, the
-ones with the histogram), K8 and K9 launches and the mesh kernels'
+ones with the histogram), K8 and K9 launches, the mesh kernels'
 counts (``K10``/``K11``: the launches that planned and that moved, or
-decided whether to; ``mesh_steal``: launches of the one steal kernel)
+decided whether to; ``mesh_steal``: launches of the one steal kernel;
+``K12``: deals) and K5's
 of one call, read from the checkout's counters (null where a checkout
 has no such counter). Every
 item's output (every plane, and the histogram) is hashed; ``main``
 fails unless all runs of both checkouts agree. One JSON line per run,
 with the card's name and power limit and the ptxas lines of
-``step.cu`` and ``mesh.cu``. The entry points used are the ones both sides of the
+``step.cu``, ``mesh.cu`` and ``solve.cu``. The entry points used are the ones both sides of the
 change have. Run it from a directory that holds both checkouts, on a
 machine with the card, e.g.
 
@@ -53,7 +62,7 @@ sys.path.insert(0, ".")
 import numpy as np, torch
 import chip_smoke
 from mythril_tpu_torch.disassembler.asm import assemble
-from mythril_tpu_torch.laser.cuda import _build, batch, engine, inloop_solve, kernels, megakernel, mesh
+from mythril_tpu_torch.laser.cuda import _build, batch, engine, inloop_solve, kernels, megakernel, mesh, solver
 
 reps, seed = int(sys.argv[1]), int(sys.argv[2])
 t0 = time.time()
@@ -82,7 +91,7 @@ for name, src in (("becstress", chip_smoke.STRESS_SRC), ("bectoken", open("bench
     inputs[name] = (bank_for(assemble(src)), batch.build_batch(cfg, seeds(8, 8), device=dev))
 COUNTERS = {"K1": (engine, "launches"), "K1_stats": (engine, "stats_launches"), "K8": (engine, "hist_launches"),
             "K9": (engine, "slice_launches"), "K10": (mesh, "plan_launches"), "K11": (mesh, "steal_launches"),
-            "mesh_steal": (mesh, "launches")}
+            "mesh_steal": (mesh, "launches"), "K12": (mesh, "deal_launches"), "K5": (solver, "launches")}
 
 
 def zero_counts():
@@ -201,8 +210,77 @@ items["mesh_super_round/becstress/stats_on"] = measure(lambda _: mesh_super_roun
 per = cfg.lanes // 8
 for label, running in (("steal_96", [per, per] + [0] * 6), ("no_steal", [per // 2] * 7 + [per // 2 + 1])):
     items[f"steal_round/{label}"] = measure(steal_round, steal_args(steal_state(running)), spin=True)
+
+
+def deal_prep(st):
+    """A fresh copy of ``st`` (and, in a checkout whose K12 launch takes
+    a scratch batch and an order buffer, those)."""
+    def prep():
+        s = batch.StateBatch(*(x.clone() for x in st))
+        if hasattr(kernels, "DealScratch"):
+            return (s,)
+        return s, batch.StateBatch(*(torch.empty_like(x) for x in st)), torch.empty(cfg.lanes, dtype=torch.int32,
+                                                                                     device=dev)
+    return prep
+
+
+def deal_launch(a):
+    if hasattr(kernels, "DealScratch"):
+        order = kernels.launch_mesh_deal(a[0], 8)
+    else:
+        kernels.launch_mesh_deal(a[0], a[1], 8, a[2])
+        order = a[2]
+    return (*a[0], order)
+
+
+deal_state = steal_state([per, per] + [0] * 6)
+items["deal/steal_128/rebalance"] = measure(lambda _: tuple(mesh.rebalance(deal_state, 8, device=dev)), spin=True)
+items["deal/steal_128/launch"] = measure(deal_launch, deal_prep(deal_state), spin=True)
+
+from mythril_tpu_torch.laser.cuda import backend, convert
+from mythril_tpu_torch.smt import Not, Or, UGT, ULT, symbol_factory, terms
+
+
+def formula_sets(width, n, seed_):
+    r = np.random.default_rng(seed_)
+    a, b, c = (symbol_factory.BitVecSym(f"ab{width}_{seed_}_{x}", width) for x in "abc")
+
+    def val(v):
+        return symbol_factory.BitVecVal(int(v) % (1 << width), width)
+
+    out = []
+    for k in range(n):
+        extra = [UGT(b, val(r.integers(1 << 30))), b - a == c, Or(a == val(5), b == val(r.integers(1 << 30))),
+                 Not(c == val(9)), a & val(0xFF) == val(r.integers(256)), c == val(r.integers(1 << 30))]
+        pick = [extra[i] for i in r.choice(len(extra), int(r.integers(1, 4)), replace=False)]
+        out.append([t.raw for t in [a + val(k) == b, ULT(a, val(r.integers(1 << 30)))] + pick])
+    return out
+
+
+def solve_ops(insts, bucket):
+    lits, nvars, is_input, V = solver._pack_batch(insts, *bucket)
+    warm = np.where(rng.random(is_input.shape) < 0.25, rng.choice([-1, 1], is_input.shape), 0)
+    warm = np.where(np.arange(V)[None, :] < nvars[:, None], warm, 0).astype(np.int8)
+    return convert.solver_operands_to_torch((lits, nvars, is_input, warm), dev)
+
+
+ladder = solver.shape_ladder()
+warm_formula = [terms.bool_eq(terms.bv_var("!warmup", 8), terms.bv_const(1, 8))]
+warm_insts = [i for i in solver.compile_cnf_batch([warm_formula] * 8, solver.MAX_VARS, solver.MAX_CLAUSES)]
+small = [i for i in solver.compile_cnf_batch(formula_sets(32, 8, seed), solver.MAX_VARS, solver.MAX_CLAUSES)
+         if i is not None and i.trivial is None and i.nvars <= ladder[0][0] and i.clause_arr.shape[0] <= ladder[0][1]]
+big = [i for i in solver.compile_cnf_batch(formula_sets(192, 64, seed), solver.MAX_VARS, solver.MAX_CLAUSES)
+       if i is not None and i.trivial is None and (i.nvars > ladder[-2][0] or i.clause_arr.shape[0] > ladder[-2][1])]
+for label, insts, bucket in (("warmup_batch", warm_insts, ladder[0]),
+                             ("smallest_bucket_I8", [small[i % len(small)] for i in range(8)], ladder[0]),
+                             ("largest_bucket_I64", [big[i % len(big)] for i in range(64)], ladder[-1])):
+    ops = solve_ops(insts, bucket)
+    items[f"solve/{label}"] = measure(lambda _, ops=ops: solver.solve(*ops, backend.SOLVE_FLIPS, 7, device=dev),
+                                      spin=True)
+    items[f"solve/{label}"]["shape"] = [int(ops[0].shape[0]), *map(int, bucket)]
+    items[f"solve/{label}"]["sweeps_max"] = int(solver.solve(*ops, backend.SOLVE_FLIPS, 7, device=dev)[2].max())
 ptxas = {}
-for src in ("step", "mesh"):
+for src in ("step", "mesh", "solve"):
     log = os.path.join(_build.BUILD_DIR, f"{src}.log")
     ptxas[src] = [ln.strip() for ln in open(log) if "registers" in ln or "spill" in ln] if os.path.exists(log) else []
 smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],

@@ -16,6 +16,7 @@
 #include "step.cuh"
 #include "transfer.cuh"
 
+#include <functional>
 #include <vector>
 
 // Runs fn(i) for i in [0, n), ascending or (reverse) descending: the
@@ -29,6 +30,57 @@ static void each(int n, int reverse, F fn) {
   else
     for (int i = 0; i < n; ++i) fn(i);
 }
+
+// K5's block (solve.cuh solve_block) on the host. A part (each) is
+// held until the next barrier; at a barrier (sync, sync_or) every thread
+// in turn runs all its held parts and then the barrier's own part, so a
+// thread's parts between two barriers run back to back, as on the card,
+// and another thread's may come before or after them. sync_or ORs the
+// threads' results; a warp's minimum is taken over its threads' values
+// once all have run.
+struct SolveBlockEmu {
+  int n, reverse;
+  std::vector<std::function<void(int)>> held;
+  std::vector<int> vals[2];
+  int32_t* dst[2] = {nullptr, nullptr};
+  template <class F>
+  void each(F f) {
+    held.emplace_back(f);
+  }
+  void sync() {
+    sync_or([](int) { return false; });
+  }
+  template <class F>
+  bool sync_or(F f) {
+    bool any = false;
+    ::each(n, reverse, [&](int t) {
+      for (auto& part : held) part(t);
+      any |= (bool)f(t);
+    });
+    held.clear();
+    for (int k = 0; k < 2; ++k) {
+      if (!dst[k]) continue;
+      for (int w = 0; w * 32 < n; ++w) {
+        int m = 0x7fffffff;
+        for (int t = w * 32; t < w * 32 + 32 && t < n; ++t) m = vals[k][t] < m ? vals[k][t] : m;
+        dst[k][w] = m;
+      }
+      dst[k] = nullptr;
+    }
+    return any;
+  }
+  void warp_min(int32_t* w, int v, int t) {
+    const int k = (!dst[0] || dst[0] == w) ? 0 : 1;
+    dst[k] = w;
+    vals[k].resize(n);
+    vals[k][t] = v;
+  }
+  int block_min(const int32_t* w) {
+    int m = 0x7fffffff;
+    for (int i = 0; i * 32 < n; ++i) m = w[i] < m ? w[i] : m;
+    return m;
+  }
+};
 
 extern "C" {
 
@@ -220,16 +272,25 @@ int emu_keccak(const uint8_t* data, const int32_t* length, uint8_t* out, int row
   return 0;
 }
 
-// K5: one instance at a time, one "thread"
+// K5 (solve.cu): each instance's block of nthreads threads, its parts
+// run thread by thread (ascending or descending) between its barriers
+// (SolveBlockEmu); the block's shared memory is filled with a pattern
+// first.
 int emu_solve(const int32_t* lits, const int32_t* nvars, const uint8_t* is_input,
               const int8_t* warm, int32_t* status, uint8_t* assign, int32_t* sweeps, int I, int C,
-              int V, int flips, uint32_t seed) {
-  std::vector<int8_t> val(V), fixed(V);
-  std::vector<int32_t> upd(V);
-  SolveFlags f;
-  for (int i = 0; i < I; ++i)
-    solve_instance(lits, nvars, is_input, warm, status, assign, sweeps, C, V, flips, seed, i,
-                   val.data(), fixed.data(), upd.data(), &f, 0, 1);
+              int V, int flips, uint32_t seed, int nthreads, int reverse) {
+  if (nthreads < 32 || nthreads % 32 || nthreads > SOLVE_MAX_THREADS || V <= 0 || V > SOLVE_MAX_VARS) return 2;
+  const SolveArgs a{lits, nvars, is_input, warm, status, assign, sweeps, C, V, flips, seed,
+                    ((uintptr_t)lits & 15) == 0 && C % 4 == 0};
+  std::vector<mt_u4> smem(solve_smem_bytes(C, V, nthreads) / 16 + 1);
+  for (int i = 0; i < I; ++i) {
+    for (size_t b = 0; b < smem.size() * 16; ++b) ((uint8_t*)smem.data())[b] = (uint8_t)(0xA5 ^ b);
+    SolveShared sh;
+    for (size_t b = 0; b < sizeof(sh); ++b) ((uint8_t*)&sh)[b] = (uint8_t)(0x5A ^ b);
+    SolveBlockEmu blk{nthreads, reverse};
+    solve_block(blk, a, solve_carve((uint8_t*)smem.data(), C, V, solve_chunk(C, V, nthreads)), sh, i);
+    blk.sync();  // the block's exit: its last parts run
+  }
   return 0;
 }
 
@@ -323,14 +384,49 @@ int emu_mesh_steal(const Planes* Pp, int n, int flags, uint8_t* export_, int32_t
   return 0;
 }
 
-// K12: the deal's order, the gather into scratch, the copy back
-int emu_mesh_deal(const Planes* Pp, const Planes* Sp, int n, int32_t* order) {
+// K12 (mesh.cu): one launch of nblocks blocks of nthreads threads, each
+// block's parts run thread by thread between its barriers (warp 0's
+// scans over the arrays), in either order, a block's shared memory
+// filled with a pattern first; every block plans and gathers its units
+// of the moving rows before any block copies them into their slots (the
+// grid barrier).
+int emu_mesh_deal(const Planes* Pp, const Planes* Sp, int n, int32_t* order, int nblocks, int nthreads,
+                  int reverse) {
   const Planes& P = *Pp;
-  if (n < 1 || n > MESH_MAX_SHARDS || P.L % n != 0 || P.L > 1024) return 2;
-  int32_t packed[1024];
-  mesh_deal_order(P, n, packed, order);
-  for (int d = 0; d < P.L; ++d) copy_row_part(P, *Sp, order[d], d, 0, 1);
-  for (int d = 0; d < P.L; ++d) copy_row_part(*Sp, P, d, d, 0, 1);
+  const int L = P.L;
+  if (n < 1 || n > MESH_MAX_SHARDS || L < 1 || L % n != 0 || Sp->L < L) return 2;
+  if (nblocks < 1 || nthreads < L || nthreads % 32 || nthreads > MESH_MAX_LANES) return 3;
+  std::vector<MeshShared> ms(nblocks);
+  const uint32_t G = (uint32_t)(nblocks * nthreads);
+  each(nblocks, reverse, [&](int b) {
+    MeshShared& m = ms[b];
+    for (int i = 0; i < (int)sizeof(MeshShared); ++i) ((uint8_t*)&m)[i] = (uint8_t)(0xA5 ^ i);
+    for (int w = 0; w < MESH_MAX_WARPS; ++w) m.ballot[w][0] = m.ballot[w][1] = 0;  // the ballots' OR below
+    // (a)
+    each(nthreads, reverse, [&](int t) {
+      mesh_unit_fields(P, m, t, nthreads, Sp);
+      m.ballot[t >> 5][0] |= (uint32_t)(mesh_lane_bits(P, nullptr, MESH_PLAN, t) & 1) << (t & 31);
+    });
+    // (b)
+    mesh_warp_counts(m, nthreads >> 5);
+    mesh_units_prefix(m);
+    // (c)
+    each(nthreads, reverse,
+         [&](int t) { m.ballot[t >> 5][1] |= (uint32_t)(mesh_deal_slot(m, L, n, t) != t) << (t & 31); });
+    // (d)
+    mesh_warp_counts(m, nthreads >> 5);
+    // (e)
+    each(nthreads, reverse, [&](int t) { mesh_deal_record(m, L, n, b == 0, order, t); });
+    if (!m.nmove) return;
+    each(nthreads, reverse,
+         [&](int t) { mesh_move_units(m, (uint32_t)(b * nthreads + t), G, MESH_TO_SCRATCH); });
+  });
+  // the grid barrier
+  each(nblocks, reverse, [&](int b) {
+    if (!ms[b].nmove) return;
+    each(nthreads, reverse,
+         [&](int t) { mesh_move_units(ms[b], (uint32_t)(b * nthreads + t), G, MESH_FROM_SCRATCH); });
+  });
   return 0;
 }
 }

@@ -39,9 +39,33 @@
 // steal's rows over every SM in 16-byte units where the planes allow,
 // MESH_BATCH loads in flight a thread, so a steal's time follows its bytes.
 //
-// K12: one block orders the deal, one block per lane gathers every
-// plane's row into scratch, one per lane copies back (replaces
-// mesh.py:83 rebalance).
+// mesh_deal_kernel is K12 (replaces mesh.py:83 rebalance): one
+// cooperative launch a deal, of the card's resident blocks (sized by
+// mesh_resident_blocks, as the steal kernel's), in place on the batch.
+// Each block orders the deal from the unchanged planes on its own, a
+// thread a lane: the running bits' ballots and warp 0's scan (parts (a)
+// and (b) of mesh.cuh, the steal kernel's), each lane's packed place and
+// slot, a second ballot and scan of the lanes whose slot is not their
+// own, and each such lane's rank among them, which is its scratch row;
+// block 0 writes order. A deal where no lane moves (all running lanes
+// already dealt) returns there, having written only order. Otherwise the
+// grid copies the moving rows' units into the scratch batch (16, 4 or 1
+// bytes, MESH_BATCH loads in flight a thread, mesh_move_units), meets at
+// one grid barrier, and copies them from there into their slots. Rows
+// that stay put are never read or written. One grid barrier is enough:
+// the plan's reads of alive and status and the gather's reads of the
+// planes all come before it, and the only writes to a plane after it.
+// The scratch holds one row per moving lane (at most L); kernels.py
+// keeps one per batch shape. mesh.rebalance, pure as the reference's,
+// clones the batch and deals the clone; the sync mesh round deals the
+// copy engine.run returned.
+//
+// Bound on the H100: bytes. The plan reads 5 bytes a lane and order
+// writes 4; the deal moves D rows of rb bytes, so the bound is
+// 2 D rb + 9 L bytes. Going through the scratch reads and writes each
+// moved row twice (4 D rb), so the design reaches at most half its
+// bound; a deal in place without scratch would have to follow the
+// permutation's cycles.
 #include <cooperative_groups.h>
 
 #include "mesh.cuh"
@@ -87,9 +111,9 @@ __global__ void __launch_bounds__(MESH_THREADS, 1)
   mesh_move_units(ms, blockIdx.x * blockDim.x + t, gridDim.x * blockDim.x);
 }
 
-// The most blocks of mesh_steal_kernel the current device holds at once.
-static int mesh_resident_blocks(int* out) {
-  static int cache[MAX_DEVICES];
+// The most blocks of ``kernel`` (of MESH_THREADS threads) the current
+// device holds at once; ``cache`` holds one count a device.
+static int mesh_resident_blocks(const void* kernel, int* cache, int* out) {
   int dev;
   cudaError_t e = cudaGetDevice(&dev);
   if (e) return (int)e;
@@ -98,7 +122,7 @@ static int mesh_resident_blocks(int* out) {
     return 0;
   }
   int per_sm = 0, sms = 0;
-  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, mesh_steal_kernel, MESH_THREADS, 0);
+  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, MESH_THREADS, 0);
   if (e) return (int)e;
   e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (e) return (int)e;
@@ -107,18 +131,41 @@ static int mesh_resident_blocks(int* out) {
   return 0;
 }
 
-__global__ void mesh_order_kernel(Planes P, int n, int32_t* order) {
-  __shared__ int32_t packed[MESH_MAX_LANES];
-  if (threadIdx.x == 0) mesh_deal_order(P, n, packed, order);
+__global__ void __launch_bounds__(MESH_THREADS, 1)
+    mesh_deal_kernel(Planes P, const __grid_constant__ Planes Sc, int n, int32_t* order) {
+  __shared__ MeshShared ms;
+  const int t = threadIdx.x, L = P.L, nwarps = blockDim.x >> 5;
+  // (a) the running bits
+  mesh_unit_fields(P, ms, t, blockDim.x, &Sc);
+  const uint32_t run = __ballot_sync(0xffffffffu, mesh_lane_bits(P, nullptr, MESH_PLAN, t) & 1);
+  if ((t & 31) == 0) {
+    ms.ballot[t >> 5][0] = run;
+    ms.ballot[t >> 5][1] = 0;
+  }
+  __syncthreads();
+  // (b) warp 0 scans them; warp 1 sums the unit table meanwhile
+  if (t == 32) mesh_units_prefix(ms);
+  if (t < 32) mesh_warp_counts(ms, nwarps, t);
+  __syncthreads();
+  // (c) the lanes that move
+  const uint32_t mv = __ballot_sync(0xffffffffu, mesh_deal_slot(ms, L, n, t) != t);
+  if ((t & 31) == 0) ms.ballot[t >> 5][1] = mv;
+  __syncthreads();
+  // (d) warp 0 scans them
+  if (t < 32) mesh_warp_counts(ms, nwarps, t);
+  __syncthreads();
+  // (e) order and the moves
+  mesh_deal_record(ms, L, n, blockIdx.x == 0, order, t);
+  __syncthreads();
+  if (!ms.nmove) return;
+  const uint32_t gtid = blockIdx.x * blockDim.x + t, G = gridDim.x * blockDim.x;
+  mesh_move_units(ms, gtid, G, MESH_TO_SCRATCH);
+  cg::this_grid().sync();  // every gather (and every plan) before any row lands in its slot
+  mesh_move_units(ms, gtid, G, MESH_FROM_SCRATCH);
 }
 
-__global__ void mesh_gather_kernel(Planes P, Planes Sc, const int32_t* order) {
-  copy_row_part(P, Sc, order[blockIdx.x], blockIdx.x, threadIdx.x, blockDim.x);
-}
-
-__global__ void mesh_copyback_kernel(Planes Sc, Planes P) {
-  copy_row_part(Sc, P, blockIdx.x, blockIdx.x, threadIdx.x, blockDim.x);
-}
+// kernel launches made by this library: the steal kernel's, the deal's
+static long long mesh_kernel_launches[2];
 
 static int mesh_args_ok(const Planes* P, int n, int nfields) {
   if (nfields != NFIELDS) return 0;
@@ -136,7 +183,8 @@ MT_EXPORT int mt_mesh_steal(const Planes* P, int n, int flags, uint8_t* export_,
   if (!mesh_args_ok(P, n, nfields)) return (int)cudaErrorInvalidValue;
   int grid = 1;
   if (flags & MESH_MOVE) {
-    int err = mesh_resident_blocks(&grid);
+    static int cache[MAX_DEVICES];
+    int err = mesh_resident_blocks((const void*)mesh_steal_kernel, cache, &grid);
     if (err) return err;
     if (grid < 1) return (int)cudaErrorCooperativeLaunchTooLarge;
   }
@@ -148,20 +196,22 @@ MT_EXPORT int mt_mesh_steal(const Planes* P, int n, int flags, uint8_t* export_,
     cudaGetLastError();  // leave no error behind for the next launch's check
     return err;
   }
+  ++mesh_kernel_launches[0];
   return (int)cudaGetLastError();
 }
 
 // out = [registers per thread, local bytes per thread (spills and stack),
 // static shared bytes per block, threads per block, blocks resident per
-// SM, SMs]: what chip_smoke.py prints beside the steal kernel's times.
-MT_EXPORT int mt_mesh_steal_info(int* out) {
+// SM, SMs] of the steal kernel (which 0) or the deal (which 1): what
+// chip_smoke.py prints beside their times.
+MT_EXPORT int mt_mesh_info(int* out, int which) {
+  const void* kernel = which ? (const void*)mesh_deal_kernel : (const void*)mesh_steal_kernel;
   cudaFuncAttributes a;
-  cudaError_t e = cudaFuncGetAttributes(&a, mesh_steal_kernel);
+  cudaError_t e = cudaFuncGetAttributes(&a, kernel);
   if (e) return (int)e;
   int dev, per_sm = 0, sms = 0;
   if ((e = cudaGetDevice(&dev))) return (int)e;
-  if ((e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, mesh_steal_kernel, MESH_THREADS, 0)))
-    return (int)e;
+  if ((e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, MESH_THREADS, 0))) return (int)e;
   if ((e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev))) return (int)e;
   out[0] = a.numRegs;
   out[1] = (int)a.localSizeBytes;
@@ -172,15 +222,34 @@ MT_EXPORT int mt_mesh_steal_info(int* out) {
   return 0;
 }
 
+// K12: one cooperative launch deals the batch P in place over n shards,
+// the moving rows through the scratch batch Sc (planes of P's row sizes
+// and at least P's lanes); order i32[L] gets the deal's lane order.
 MT_EXPORT int mt_mesh_deal(const Planes* P, const Planes* Sc, int n, int32_t* order, int nfields,
                            cudaStream_t stream) {
-  if (!mesh_args_ok(P, n, nfields)) return (int)cudaErrorInvalidValue;
-  mesh_order_kernel<<<1, 32, 0, stream>>>(*P, n, order);
-  int err = (int)cudaGetLastError();
+  if (!mesh_args_ok(P, n, nfields) || Sc->L < P->L) return (int)cudaErrorInvalidValue;
+  for (int f = 0; f < NFIELDS; ++f)
+    if (Sc->row_bytes[f] != P->row_bytes[f]) return (int)cudaErrorInvalidValue;
+  static int cache[MAX_DEVICES];
+  int grid = 0;
+  int err = mesh_resident_blocks((const void*)mesh_deal_kernel, cache, &grid);
   if (err) return err;
-  mesh_gather_kernel<<<P->L, 256, 0, stream>>>(*P, *Sc, order);
-  err = (int)cudaGetLastError();
-  if (err) return err;
-  mesh_copyback_kernel<<<P->L, 256, 0, stream>>>(*Sc, *P);
+  if (grid < 1) return (int)cudaErrorCooperativeLaunchTooLarge;
+  Planes Pv = *P, Sv = *Sc;
+  void* args[] = {&Pv, &Sv, &n, (void*)&order};
+  err = (int)cudaLaunchCooperativeKernel((const void*)mesh_deal_kernel, dim3(grid), dim3(MESH_THREADS), args, 0,
+                                         stream);
+  if (err) {
+    cudaGetLastError();
+    return err;
+  }
+  ++mesh_kernel_launches[1];
   return (int)cudaGetLastError();
+}
+
+// out = [steal kernel launches, deal kernel launches] made so far
+MT_EXPORT int mt_mesh_launches(long long* out) {
+  out[0] = mesh_kernel_launches[0];
+  out[1] = mesh_kernel_launches[1];
+  return 0;
 }

@@ -33,6 +33,16 @@
 //      launch also planned): every thread of the grid takes units of the
 //      moved rows (mesh_move_units), grid-stride.
 // No thread loops over a shard's lanes or over the shards for a lane.
+//
+// K12 (the deal, mesh_deal_kernel) reuses (a), (b) and the moves: (a)
+// ballots the running bits; (b) warp 0 scans them; (c) one thread a lane
+// takes its packed place p (running lanes first, stable) and its slot
+// (p mod n) * per + p div n, and ballots whether the slot is not its
+// own lane; (b) again scans those ballots; (e) one thread a lane: block
+// 0 writes order[slot] = lane, and each lane that moves records its move
+// at its rank among the moving lanes; then the grid copies the moving
+// rows into rows 0.. of a scratch batch and, after one grid barrier,
+// from there into their slots (mesh_move_units).
 #pragma once
 #include "common.cuh"
 
@@ -56,10 +66,6 @@
 // the planes an exporter has zeroed (mesh.py:210-215): its copy owns them
 #define MESH_KILLED ((1ull << F_ALIVE) | (1ull << F_STEPS) | (1ull << F_STATIC_PRUNED) | (1ull << F_VISITED))
 
-MT_DEV bool mesh_running(const Planes& P, int l) {
-  return PL(uint8_t, F_ALIVE)[l] && PL(int32_t, F_STATUS)[l] == RUNNING;
-}
-
 MT_DEV int mesh_popc(uint32_t x) {
 #ifdef MT_HOST_EMU
   return __builtin_popcount(x);
@@ -69,7 +75,8 @@ MT_DEV int mesh_popc(uint32_t x) {
 }
 
 // packed lane counts: the counted bit (running, or exported) in bits
-// 0-15, alive in bits 16-31 (at most 1024 lanes each)
+// 0-15, alive in bits 16-31 (at most 1024 lanes each); in the deal's
+// second scan, bits 16-31 count the lanes that move
 MT_DEV int mp_run(int32_t c) { return c & 0xFFFF; }
 MT_DEV int mp_alive(int32_t c) { return (c >> 16) & 0xFFFF; }
 
@@ -84,8 +91,10 @@ struct MeshShared {
   int16_t mv_src[MESH_MAX_LANES], mv_dst[MESH_MAX_LANES];  // move m: exporter lane, target lane
   // A lane's row of every plane as one list of units: plane f's row is
   // units ustart[f] .. ustart[f + 1] - 1, each 1 << ushift[f] bytes (16,
-  // 4 or 1: the widest its row size and base allow).
+  // 4 or 1: the widest its row size and base, and the scratch plane's
+  // base where there is one, allow).
   uint8_t* base[NFIELDS];
+  uint8_t* sbase[NFIELDS];  // the deal's scratch batch: plane f
   int64_t rb[NFIELDS];
   int32_t ustart[NFIELDS + 1];
   uint8_t ushift[NFIELDS];
@@ -99,11 +108,13 @@ MT_DEV uint8_t mesh_lane_bits(const Planes& P, const uint8_t* export_, int flags
   return (alive && PL(int32_t, F_STATUS)[t] == RUNNING ? 1 : 0) | (alive ? 2 : 0);
 }
 
-// part (a), thread t of nthreads: planes t, t + nthreads, ... of the unit table
-MT_DEV void mesh_unit_fields(const Planes& P, MeshShared& ms, int t, int nthreads) {
+// part (a), thread t of nthreads: planes t, t + nthreads, ... of the
+// unit table (with Sc, the deal's scratch batch, its planes too)
+MT_DEV void mesh_unit_fields(const Planes& P, MeshShared& ms, int t, int nthreads, const Planes* Sc = nullptr) {
   for (int f = t; f < NFIELDS; f += nthreads) {
     const int64_t rb = P.row_bytes[f];
-    const uintptr_t al = (uintptr_t)P.p[f];
+    const uintptr_t al = (uintptr_t)P.p[f] | (Sc ? (uintptr_t)Sc->p[f] : 0);
+    ms.sbase[f] = Sc ? (uint8_t*)Sc->p[f] : nullptr;
     const int shift = ((rb & 15) == 0 && (al & 15) == 0) ? 4 : (((rb & 3) == 0 && (al & 3) == 0) ? 2 : 0);
     ms.base[f] = (uint8_t*)P.p[f];
     ms.rb[f] = rb;
@@ -326,15 +337,21 @@ MT_DEV int mesh_field_of(const MeshShared& ms, int v) {
   return lo;
 }
 
+// what mesh_move_units copies: the steal's moves (exporter row to target
+// row, the exporter's MESH_KILLED planes zeroed), or the deal's two
+// halves (moving row m to scratch row m; scratch row m to its slot)
+enum MeshMoveDir { MESH_STEAL_MOVES, MESH_TO_SCRATCH, MESH_FROM_SCRATCH };
+
 // part (d), thread gtid of the grid's G: units gtid, gtid + G, ... of the
 // nmove moved rows (unit u: move u / U, unit u % U of the row), each
-// copied from the exporter's row to the target's, MESH_BATCH of them
+// copied from its source row to its target row (dir), MESH_BATCH of them
 // loaded before any is stored. The kill (mesh.py:210-215) cannot overtake
 // the copy of the same bytes: the thread that copies a unit of a
 // MESH_KILLED plane then stores zeros over it at the source, after its
 // own load of it. Exporters are alive and targets free, so no two moves
-// touch one lane and every byte is written by one thread.
-MT_DEV void mesh_move_units(const MeshShared& ms, uint32_t gtid, uint32_t G) {
+// touch one lane and every byte is written by one thread; the deal's
+// slots are a permutation, its scratch rows distinct.
+MT_DEV void mesh_move_units(const MeshShared& ms, uint32_t gtid, uint32_t G, int dir = MESH_STEAL_MOVES) {
   const uint32_t U = (uint32_t)ms.ustart[NFIELDS], total = (uint32_t)ms.nmove * U;
   const mt_u4 z = {0, 0, 0, 0};
   for (uint32_t u0 = gtid; u0 < total; u0 += MESH_BATCH * G) {
@@ -355,10 +372,11 @@ MT_DEV void mesh_move_units(const MeshShared& ms, uint32_t gtid, uint32_t G) {
       const uint32_t m = u / U, v = u - m * U;
       const int f = mesh_field_of(ms, (int)v);
       sft[k] = ms.ushift[f];
-      kill[k] = (MESH_KILLED >> f) & 1;
+      kill[k] = dir == MESH_STEAL_MOVES && ((MESH_KILLED >> f) & 1);
       const int64_t off = (int64_t)(v - (uint32_t)ms.ustart[f]) << sft[k];
-      src[k] = ms.base[f] + ms.rb[f] * ms.mv_src[m] + off;
-      dst[k] = ms.base[f] + ms.rb[f] * ms.mv_dst[m] + off;
+      uint8_t* scr = dir == MESH_STEAL_MOVES ? nullptr : ms.sbase[f] + ms.rb[f] * m + off;
+      src[k] = dir == MESH_FROM_SCRATCH ? scr : ms.base[f] + ms.rb[f] * ms.mv_src[m] + off;
+      dst[k] = dir == MESH_TO_SCRATCH ? scr : ms.base[f] + ms.rb[f] * ms.mv_dst[m] + off;
       if (sft[k] == 4) buf[k] = *(const mt_u4*)src[k];
       else if (sft[k] == 2) buf[k].x = *(const uint32_t*)src[k];
       else buf[k].x = *src[k];
@@ -377,13 +395,29 @@ MT_DEV void mesh_move_units(const MeshShared& ms, uint32_t gtid, uint32_t G) {
   }
 }
 
-// K12's order (mesh.py:83-110 rebalance): running lanes first, stable,
-// then dealt round-robin: slot s * per + k takes packed lane k * n + s.
-MT_DEV void mesh_deal_order(const Planes& P, int n, int32_t* packed, int32_t* order) {
-  const int L = P.L, per = L / n;
-  int front = 0;
-  for (int l = 0; l < L; ++l) if (mesh_running(P, l)) packed[front++] = l;
-  for (int l = 0; l < L; ++l) if (!mesh_running(P, l)) packed[front++] = l;
-  for (int s = 0; s < n; ++s)
-    for (int k = 0; k < per; ++k) order[s * per + k] = packed[k * n + s];
+// K12 (mesh.py:83-110 rebalance), part (c) and (e), thread t (lane t):
+// lane t's slot. Its packed place p (the running lanes first, each part
+// in lane order) is its count of running lanes before it, or past the
+// running lanes its count of idle ones; slot s * per + k takes packed
+// place k * n + s. Lanes past L keep their own (they do not move).
+MT_DEV int mesh_deal_slot(const MeshShared& ms, int L, int n, int t) {
+  if (t >= L) return t;
+  const int before = mp_run(mesh_count_at(ms, t)), total = mp_run(mesh_count_at(ms, L));
+  const int p = (ms.ballot[t >> 5][0] >> (t & 31)) & 1 ? before : total + t - before;
+  return (p % n) * (L / n) + p / n;
+}
+
+// K12 part (e), thread t, after the second scan (its bits 16-31 count
+// the moving lanes): block 0 (writer) writes order[slot] = t; a lane that
+// moves records move m (its rank among the moving lanes): source lane t,
+// scratch row m, target lane slot. Thread 0 sets the move count.
+MT_DEV void mesh_deal_record(MeshShared& ms, int L, int n, bool writer, int32_t* order, int t) {
+  if (t == 0) ms.nmove = mp_alive(mesh_count_at(ms, L));
+  if (t >= L) return;
+  const int slot = mesh_deal_slot(ms, L, n, t);
+  if (writer) order[slot] = t;
+  if (slot == t) return;
+  const int m = mp_alive(mesh_count_at(ms, t));
+  ms.mv_src[m] = (int16_t)t;
+  ms.mv_dst[m] = (int16_t)slot;
 }

@@ -149,13 +149,15 @@ _SIGS = {
     ("inloop", "mt_unsat_mask_info"): [_V],
     ("megakernel", "mt_round_epilogue"): [_P(Planes), _P(Planes)] + [_V] * 8 + [_I, _I, _I, _V, _I, _V],
     ("megakernel", "mt_round_epilogue_info"): [_V],
-    ("solve", "mt_solve"): [_V] * 7 + [_I] * 4 + [ctypes.c_uint32, _V],
+    ("solve", "mt_solve"): [_V] * 7 + [_I] * 5 + [ctypes.c_uint32, _V],
+    ("solve", "mt_solve_info"): [_V, _I, _I, _I],
     ("transfer", "mt_xfer"): [_V, _I, ctypes.c_uint32, _V],
     ("hist", "mt_op_hist"): [_V, _I, _I] + [_V] * 4 + [_I, _V, _V],
     ("slice", "mt_slice_ctl"): [_V, _V, _I, _V, _I, _V],
     ("mesh", "mt_mesh_steal"): [_P(Planes), _I, _I] + [_V] * 5 + [_I, _V],
-    ("mesh", "mt_mesh_steal_info"): [_V],
+    ("mesh", "mt_mesh_info"): [_V, _I],
     ("mesh", "mt_mesh_deal"): [_P(Planes), _P(Planes), _I, _V, _I, _V],
+    ("mesh", "mt_mesh_launches"): [_V],
 }
 
 # K4 flags (csrc/megakernel.cuh) and the steal kernel's (csrc/mesh.cuh)
@@ -250,7 +252,34 @@ def epilogue_info(dev) -> dict:
 
 def mesh_steal_info(dev) -> dict:
     """The steal kernel's (K10/K11) compiled resources, as ``step_run_info``."""
-    return dict(zip(_INFO_KEYS, _kernel_info("mesh", "mt_mesh_steal_info", dev, 6)))
+    return dict(zip(_INFO_KEYS, _kernel_info("mesh", "mt_mesh_info", dev, 6, 0)))
+
+
+def mesh_deal_info(dev) -> dict:
+    """K12's compiled resources, as ``step_run_info``."""
+    return dict(zip(_INFO_KEYS, _kernel_info("mesh", "mt_mesh_info", dev, 6, 1)))
+
+
+def solve_info(dev, C: int, V: int, threads: int = 0) -> dict:
+    """K5's compiled resources and its launch for C clauses over V vars
+    (``threads`` 0: the bucket's own block size): registers and local
+    bytes per thread, static and dynamic shared bytes and threads per
+    block, blocks resident per SM."""
+    keys = ("registers", "local_bytes", "shared_bytes", "threads_per_block", "dynamic_shared_bytes",
+            "blocks_per_sm")
+    return dict(zip(keys, _kernel_info("solve", "mt_solve_info", dev, 6, int(C), int(V), int(threads))))
+
+
+def launch_solve(lits, nvars, is_input, warm, status, assign, sweeps, flips: int, seed: int,
+                 threads: int = 0) -> None:
+    """K5 on checked CUDA operands (solver.solve's contract), one block of
+    ``threads`` threads an instance (0: the bucket's own block size)."""
+    I, C, _ = lits.shape
+    V = is_input.shape[1]
+    rc = _fn("solve", "mt_solve")(
+        *(_vp(t) for t in (lits, nvars, is_input, warm, status, assign, sweeps)),
+        I, C, V, int(flips), int(threads), seed & 0xFFFFFFFF, _build.stream(lits.device))
+    _build.check(rc, "solve", "solve")
 
 
 def _same(built, given) -> bool:
@@ -440,16 +469,50 @@ def launch_mesh_steal(a: MeshArgs, flags: int) -> None:
     _build.check(_fn("mesh", "mt_mesh_steal")(*head, int(flags), *tail), "mesh_steal", "mesh")
 
 
-def launch_mesh_deal(st: StateBatch, scratch: StateBatch, n: int, order: torch.Tensor) -> None:
-    """K12: deal the running lanes round-robin over ``n`` blocks, every
-    plane's row moved through ``scratch``."""
-    dev = st.pc.device
-    CL = st.visited.shape[1]
-    pl = planes(st, 1, CL)
-    ps = planes(scratch, 1, CL)
-    _checked(order, "order", torch.int32, dev)
-    if order.shape != (st.pc.shape[0],):
-        raise _build.KernelError("the deal order must be int32[L]")
-    rc = _fn("mesh", "mt_mesh_deal")(ctypes.byref(pl), ctypes.byref(ps), int(n), _vp(order), NFIELDS,
-                                      _build.stream(dev))
+def mesh_kernel_launches() -> dict:
+    """The kernel launches ``csrc/mesh.cu`` has made in this process:
+    ``steal`` (the steal kernel) and ``deal`` (K12's kernel), counted in
+    C where each launch is made."""
+    out = (ctypes.c_longlong * 2)()
+    _fn("mesh", "mt_mesh_launches")(ctypes.cast(out, ctypes.c_void_p))
+    return {"steal": int(out[0]), "deal": int(out[1])}
+
+
+class DealScratch:
+    """K12's scratch batch (a row for each lane that may move, so L rows
+    of every plane) and its order buffer, allocated once per batch shape
+    and device and kept: the sync mesh loop deals a new batch of the same
+    shape every round."""
+
+    _cache = {}
+
+    def __init__(self, st: StateBatch):
+        dev = st.pc.device
+        self.scratch = StateBatch(*(torch.empty_like(x) for x in st))
+        self.ps = planes(self.scratch, 1, st.visited.shape[1])
+        self.order = torch.empty(st.pc.shape[0], dtype=torch.int32, device=dev)
+
+    @classmethod
+    def get(cls, st: StateBatch) -> "DealScratch":
+        key = (str(st.pc.device), tuple((tuple(x.shape), x.dtype) for x in st))
+        if key not in cls._cache:
+            cls._cache[key] = cls(st)
+        return cls._cache[key]
+
+
+def launch_mesh_deal(st: StateBatch, n: int) -> torch.Tensor:
+    """K12: deal the running lanes of ``st`` round-robin over ``n`` lane
+    blocks, in place, in one cooperative launch that moves only the rows
+    whose slot changes (through the shape's kept scratch). Returns the
+    deal's lane order (int32[L], the scratch's buffer, which the next
+    deal of this shape overwrites)."""
+    L = st.pc.shape[0]
+    if n < 1 or n > MESH_MAX_SHARDS or L % n or L > MESH_MAX_LANES:
+        raise _build.KernelError(f"K12 deals at most {MESH_MAX_LANES} lanes over 1-{MESH_MAX_SHARDS} shards that "
+                                 f"divide them, not {L} over {n}")
+    sc = DealScratch.get(st)
+    pl = planes(st, 1, st.visited.shape[1])
+    rc = _fn("mesh", "mt_mesh_deal")(ctypes.byref(pl), ctypes.byref(sc.ps), int(n), _vp(sc.order), NFIELDS,
+                                      _build.stream(st.pc.device))
     _build.check(rc, "mesh_deal", "mesh")
+    return sc.order

@@ -29,8 +29,10 @@ becomes two CUDA kernels (``csrc/mesh.cu``):
   ``moved > 0 and max(occ) - min(occ) > 1`` taken on the card;
   ``occupancy_impl``, ``steal_plan`` and ``steal_apply`` launch it for
   one function each;
-- K12 ``mesh_deal`` (one block for the order, one per lane for the row
-  moves through a scratch batch): ``rebalance``.
+- K12 ``mesh_deal`` (one cooperative launch a deal: every block orders
+  the deal from the running bits, a thread a lane, and the grid moves
+  only the rows whose slot changes, through a scratch batch kept per
+  batch shape): ``rebalance`` and the sync mesh round.
 
 Each has a plain twin (``*_plain``), which the wrappers run on CPU
 tensors. Spreading the shards over several cards (NCCL for the counts'
@@ -167,26 +169,31 @@ def rebalance_plain(st: StateBatch, n_shards: int = 1) -> StateBatch:
     return StateBatch(*(x[order] for x in st))
 
 
-def rebalance(st: StateBatch, n_shards: int = 1, device="cuda") -> StateBatch:
-    """Deal the running lanes evenly over the shards; a no-op with fewer
-    than 2 shards or a lane count they do not divide (packing without
-    dealing would pile the work onto shard 0). On the card K12 moves
-    every plane's row of a copy of ``st``."""
+def deal_(st: StateBatch, n_shards: int, device="cuda") -> StateBatch:
+    """The deal of a batch its caller owns: on the card K12 deals ``st``
+    in place and returns it; on the CPU the twin returns a dealt copy.
+    ``n_shards`` >= 2 must divide the lanes."""
     dev = _build.check_on(device, st.pc)
-    L = st.pc.shape[0]
-    if n_shards < 2 or L % n_shards != 0:
-        return st
     if dev.type == "cpu":
         return rebalance_plain(st, n_shards)
     from mythril_tpu_torch.laser.cuda import kernels
 
     global deal_launches
-    out = _clone(st)
-    scratch = StateBatch(*(torch.empty_like(x) for x in st))
-    order = torch.empty(L, dtype=I32, device=dev)
     deal_launches += 1
-    kernels.launch_mesh_deal(out, scratch, n_shards, order)
-    return out
+    kernels.launch_mesh_deal(st, n_shards)
+    return st
+
+
+def rebalance(st: StateBatch, n_shards: int = 1, device="cuda") -> StateBatch:
+    """Deal the running lanes evenly over the shards; a no-op with fewer
+    than 2 shards or a lane count they do not divide (packing without
+    dealing would pile the work onto shard 0). Pure, as the reference's:
+    on the card one clone of ``st``, then K12 deals the clone in place."""
+    dev = _build.check_on(device, st.pc)
+    L = st.pc.shape[0]
+    if n_shards < 2 or L % n_shards != 0:
+        return st
+    return deal_(st if dev.type == "cpu" else _clone(st), n_shards, device=dev)
 
 
 # -- the steal kernel: occupancy, the steal plan, the moves ------------
@@ -351,16 +358,17 @@ def round_impl(cb, env, st: StateBatch, steps_per_round: int = 64, do_rebalance:
                n_shards: int = 1, device="cuda"):
     """One round of the sync mesh tier: up to ``steps_per_round`` steps
     while some lane runs (``engine.run``: one K1 launch on the card), then,
-    with ``do_rebalance``, the deal (K12), then the per-shard occupancy
-    (the steal kernel counting). Returns ``(st, occ)``; ``occ`` (i32[n_shards], on the device)
-    is the host's one fetch per round for quiescence and the next
-    round's rebalance gate. Nothing here syncs."""
+    with ``do_rebalance``, the deal (K12, in place on the copy that
+    ``engine.run`` returned), then the per-shard occupancy (the steal
+    kernel counting). Returns ``(st, occ)``; ``occ`` (i32[n_shards], on
+    the device) is the host's one fetch per round for quiescence and the
+    next round's rebalance gate. Nothing here syncs."""
     if do_rebalance and n_shards < 2:
         raise ValueError("do_rebalance=True requires n_shards >= 2")
     dev = _build.check_on(device, st.pc, cb.code)
     out = engine.run(cb, env, st, max_steps=steps_per_round, device=dev)
-    if do_rebalance:
-        out = rebalance(out, n_shards, device=dev)
+    if do_rebalance and out.pc.shape[0] % n_shards == 0:
+        out = deal_(out, n_shards, device=dev)
     return out, occupancy_impl(out, max(1, n_shards), device=dev)
 
 

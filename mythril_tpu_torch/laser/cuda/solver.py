@@ -28,15 +28,15 @@ for CPU tensors. What it computes is the reference's ``_solve_kernel``:
 The random bit is a 32-bit mix of (seed, instance, step) in both the twin
 and the kernel, so K5 equals its twin bit for bit; it differs from jax's
 threefry bits, so phase 2 differs from the reference (never its
-soundness). The kernel runs one block per instance: the assignment, the
-phase-1 fixpoint and the force buffer live in shared memory (6 bytes per
-var), the threads stride over the clauses in device memory, and both
-phases loop inside the block with block-wide flags. Bound on the H100:
-the bytes of one read of the operands plus the writes; the work itself
-is a chain of dependent sweeps, so the kernel is latency-bound.
+soundness). The kernel runs one block per instance, its size chosen per
+bucket: the clause list is copied once into shared memory (cp.async, then
+packed to 16-bit literals) beside the assignment, the phase-1 fixpoint
+and the force buffer, and every sweep of both phases is two block
+barriers that also reduce its flags. Bound on the H100: the bytes of one
+read of the operands plus the writes; the work itself is a chain of
+dependent sweeps, so the kernel is latency-bound.
 """
 
-import ctypes
 import logging
 from typing import List, Optional, Sequence, Tuple
 
@@ -431,6 +431,7 @@ def _pack_batch(instances: List[CNFInstance], pad_vars: int, pad_clauses: int):
 
 
 launches = 0  # K5 launches (CUDA path only)
+SOLVE_MAX_VARS = 32767  # K5's literals are int16 in shared memory (csrc/solve.cuh)
 
 _M32 = 0xFFFFFFFF
 
@@ -560,6 +561,8 @@ def solve(lits, nvars, is_input, warm, flips: int, seed: int, device="cuda"):
     ):
         if t.dtype != dt or tuple(t.shape) != shape or not t.is_contiguous():
             raise _build.KernelError(f"solve: {name} must be a contiguous {dt} tensor of shape {shape}")
+    if V > SOLVE_MAX_VARS:
+        raise _build.KernelError(f"solve: K5 packs literals in 16 bits, so at most {SOLVE_MAX_VARS} vars, not {V}")
     status = torch.empty(I, dtype=torch.int32, device=dev)
     assign = torch.empty((I, V), dtype=torch.bool, device=dev)
     sweeps = torch.empty(I, dtype=torch.int32, device=dev)
@@ -567,11 +570,7 @@ def solve(lits, nvars, is_input, warm, flips: int, seed: int, device="cuda"):
 
     global launches
     launches += 1
-    rc = kernels._fn("solve", "mt_solve")(
-        *(ctypes.c_void_p(t.data_ptr()) for t in (lits, nvars, is_input, warm, status, assign, sweeps)),
-        I, C, V, int(flips), seed & 0xFFFFFFFF, _build.stream(dev),
-    )
-    _build.check(rc, "solve", "solve")
+    kernels.launch_solve(lits, nvars, is_input, warm, status, assign, sweeps, flips, seed)
     return status, assign, sweeps
 
 

@@ -7,8 +7,8 @@ compaction are plain C++ over pointers in
 C++ (``csrc/host_emu.cpp``), they run here on CPU tensors and are held
 bit for bit against the twins, which test_torch_mesh.py and
 test_torch_mesh_fused.py hold against the JAX reference. The steal
-kernel runs as its launch does, each part thread by thread between the
-barriers, in both thread orders and on several grids. The emulated fused
+kernel and K12 run as their launches do, each part thread by thread
+between the barriers, in both thread orders and on several grids. The emulated fused
 mesh loop follows ``run_fused_mesh``'s card loop launch for launch,
 control word and steal gate included. On the card, chip_smoke.py does
 the same with the real kernels."""
@@ -302,17 +302,86 @@ def test_mesh_plan_gate_and_counters(emu):
     assert (sh == -9).all() and not mctl.any()
 
 
+def _bytes(x):
+    """A plane's bytes, a row a lane."""
+    return x.reshape(x.shape[0], -1).view(torch.uint8)
+
+
+def _emu_deal(lib, st, n, nblocks=1, nthreads=None, reverse=0):
+    """One emulated K12 launch on ``st`` in place, through a scratch
+    batch whose bytes are a pattern (0xA5) and into an order buffer of
+    -7s. Returns (order, scratch)."""
+    L = st.pc.shape[0]
+    scratch = batch.StateBatch(*(torch.empty_like(x) for x in st))
+    for x in scratch:
+        _bytes(x).fill_(0xA5)
+    order = torch.full((L,), -7, dtype=torch.int32)
+    nthreads = nthreads or -(-L // 32) * 32
+    pl = kernels.planes(st, 1, st.visited.shape[1])
+    ps = kernels.planes(scratch, 1, st.visited.shape[1])
+    assert lib.emu_mesh_deal(ctypes.byref(pl), ctypes.byref(ps), n, _vp(order), nblocks, nthreads, reverse) == 0
+    return order, scratch
+
+
+def _check_deal(emu, st, n, where):
+    """K12 on ``st`` against the twins on each emulated grid in both
+    thread orders: the order, every plane, and no scratch row written
+    past the rows that move. Returns the number of rows that move."""
+    L = st.pc.shape[0]
+    order_t = mesh.deal_order_plain(st, n)
+    want = batch.StateBatch(*(x[order_t] for x in st))
+    if n >= 2:
+        _assert_same(want, mesh.rebalance_plain(st, n), f"{where} twin")
+    dealt = int((order_t != torch.arange(L)).sum())
+    for nblocks, nthreads in GRIDS:
+        for reverse in (0, 1):
+            at = f"{where} grid={nblocks}x{nthreads} reverse={reverse}"
+            s = _clone(st)
+            order, scratch = _emu_deal(emu, s, n, nblocks, nthreads, reverse)
+            assert torch.equal(order.long(), order_t), at
+            _assert_same(s, want, at)
+            for name, x in zip(batch.StateBatch._fields, scratch):
+                assert (_bytes(x)[dealt:] == 0xA5).all(), f"{at}: scratch {name} written past row {dealt}"
+    return dealt
+
+
 @pytest.mark.parametrize("n", [8, 4, 2])
 def test_mesh_deal_logic_matches_twin(emu, n):
-    st = _random_batch(n, dense=False)
-    s = _clone(st)
-    scratch = batch.StateBatch(*(torch.empty_like(x) for x in s))
-    order = torch.zeros(64, dtype=torch.int32)
-    pl = kernels.planes(s, 1, s.visited.shape[1])
-    ps = kernels.planes(scratch, 1, s.visited.shape[1])
-    assert emu.emu_mesh_deal(ctypes.byref(pl), ctypes.byref(ps), n, _vp(order)) == 0
-    assert torch.equal(order.long(), mesh.deal_order_plain(st, n))
-    _assert_same(s, mesh.rebalance_plain(st, n), f"deal n={n}")
+    _check_deal(emu, _random_batch(n, dense=False), n, f"random n={n}")
+
+
+@pytest.mark.parametrize("kind", ["ragged", "sparse", "skew", "idle", "all_running", "full_receivers"])
+@pytest.mark.parametrize("L,n", SHAPES, ids=[f"L{L}-n{n}" for L, n in SHAPES])
+def test_deal_kernel_matches_twins(emu, L, n, kind):
+    """K12 at the steal kernel's lane counts and shard counts, on each
+    kind of batch."""
+    st = _shaped_batch(kind, L, n, L + n + 1)
+    dealt = _check_deal(emu, st, n, f"{kind} L={L} n={n}")
+    if n > 1 and L // n > 2:  # slot 1 takes packed place n: some lane always moves
+        assert dealt > 0
+
+
+@pytest.mark.parametrize("case", ["one_shard", "a_lane_a_shard", "two_lanes_a_shard"])
+def test_deal_identity_writes_only_order(emu, case):
+    """Deals where every lane keeps its slot: one shard with the running
+    lanes first, a lane a shard with the running lanes first, and two
+    lanes a shard with exactly each shard's first lane running. The
+    launch writes the order and nothing else: every plane and every
+    scratch byte keep theirs."""
+    L = 64
+    n, running = {"one_shard": (1, torch.arange(L) < 20), "a_lane_a_shard": (64, torch.arange(L) < 37),
+                  "two_lanes_a_shard": (32, torch.arange(L) % 2 == 0)}[case]
+    st = _random_batch(3, L, n=8)
+    st = st._replace(alive=running | (torch.arange(L) % 3 == 0),
+                     status=torch.where(running, batch.RUNNING, batch.STOPPED).to(torch.int32))
+    assert torch.equal(mesh.deal_order_plain(st, n), torch.arange(L))
+    for nblocks, nthreads in GRIDS:
+        for reverse in (0, 1):
+            s = _clone(st)
+            order, scratch = _emu_deal(emu, s, n, nblocks, nthreads, reverse)
+            assert torch.equal(order.long(), torch.arange(L))
+            _assert_same(s, st, f"{case} grid={nblocks}x{nthreads}")
+            assert all((_bytes(x) == 0xA5).all() for x in scratch)
 
 
 @pytest.mark.parametrize("n", [2, 8])

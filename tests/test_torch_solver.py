@@ -208,20 +208,30 @@ def test_search_verdicts_are_sound(kind, seed, flips):
     assert (sweeps >= 1).all() and (sweeps <= flips + 2 * V + 2).all()
 
 
-def _emu_solve(lits, nvars, is_input, warm, flips, seed):
+def _emu_solve(lits, nvars, is_input, warm, flips, seed, nthreads, reverse):
+    """K5's source on the host: each instance's block of ``nthreads``
+    threads, its parts run thread by thread in ascending or descending
+    order between its barriers (csrc/host_emu.cpp ``emu_solve``)."""
     lib = _build.host_emulation()
     fn = lib.emu_solve
-    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 4 + [ctypes.c_uint32]
+    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 4 + [ctypes.c_uint32, ctypes.c_int, ctypes.c_int]
     fn.restype = ctypes.c_int
     I, C, _ = lits.shape
     V = is_input.shape[1]
     lits, nvars = np.ascontiguousarray(lits), np.ascontiguousarray(nvars)
     is_input, warm = np.ascontiguousarray(is_input), np.ascontiguousarray(warm)
-    st = np.zeros(I, np.int32)
-    asg = np.zeros((I, V), np.uint8)
-    sw = np.zeros(I, np.int32)
-    assert fn(*(a.ctypes.data for a in (lits, nvars, is_input, warm, st, asg, sw)), I, C, V, flips, seed) == 0
+    st = np.full(I, -7, np.int32)
+    asg = np.full((I, V), 0xA5, np.uint8)
+    sw = np.full(I, -7, np.int32)
+    assert fn(*(a.ctypes.data for a in (lits, nvars, is_input, warm, st, asg, sw)), I, C, V, flips, seed,
+              nthreads, reverse) == 0
+    assert set(np.unique(asg)) <= {0, 1}
     return st, asg.astype(bool), sw
+
+
+# the emulated blocks: one warp (several load chunks at every bucket
+# here), three warps, eight warps (one chunk for the random cases)
+EMU_THREADS = (32, 96, 256)
 
 
 @pytest.mark.parametrize("kind,seed", _CASES)
@@ -229,9 +239,28 @@ def _emu_solve(lits, nvars, is_input, warm, flips, seed):
 def test_kernel_source_equals_twin(kind, seed, flips):
     lits, nvars, is_input, warm, _V = _case(kind, seed)
     twin = _twin(lits, nvars, is_input, warm, flips, seed=seed + 11)
-    emu = _emu_solve(lits, nvars, is_input, warm, flips, seed + 11)
-    for t, e in zip(twin, emu):
-        assert np.array_equal(t, e)
+    for nthreads in EMU_THREADS:
+        for reverse in (0, 1):
+            emu = _emu_solve(lits, nvars, is_input, warm, flips, seed + 11, nthreads, reverse)
+            for name, t, e in zip(("status", "assign", "sweeps"), twin, emu):
+                assert np.array_equal(t, e), (name, nthreads, reverse)
+
+
+@pytest.mark.parametrize("nthreads", EMU_THREADS)
+def test_kernel_source_literal_clamp_and_ragged_rows(nthreads):
+    """Literals past the vars (the twin clamps their index to V - 1),
+    clause counts that are not a multiple of 4 (the 4-byte copies) and
+    an empty clause list, against the twin."""
+    lits, nvars, is_input, warm, V = _random_cnf(7, I=8, V=64, C=157)
+    lits = lits.copy()
+    lits[0, :5, 0] = [65, -65, 1000, -(1 << 31), (1 << 31) - 1]
+    lits[1, :2, :] = [[64, 0, 0], [-64, 0, 0]]
+    for L in (lits, lits[:, :0].copy()):
+        twin = _twin(L, nvars, is_input, warm, 64, seed=3)
+        for reverse in (0, 1):
+            emu = _emu_solve(L, nvars, is_input, warm, 64, 3, nthreads, reverse)
+            for name, t, e in zip(("status", "assign", "sweeps"), twin, emu):
+                assert np.array_equal(t, e), (name, L.shape, reverse)
 
 
 def test_phase_bits_match_kernel_mix():
