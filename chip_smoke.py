@@ -282,17 +282,19 @@ def main():
             regs[name] = [ln.strip() for ln in open(log) if "registers" in ln or "spill" in ln][:12]
     emit({"phase": "build", "seconds": round(build_s, 3), "per_source": secs, "ptxas": regs, "gpu": smi})
     dev = torch.device("cuda")
-    entries = run(dev, batch.DEFAULT_BATCH_CFG, smi)
+    entries, fused_twins = run(dev, batch.DEFAULT_BATCH_CFG, smi)
     entries += run_host_half(dev, batch.DEFAULT_BATCH_CFG, smi)
-    stats_entries, stats_k1_err = run_stats_and_sync(dev, batch.DEFAULT_BATCH_CFG, smi)
+    stats_entries, stats_k1_err = run_stats_and_sync(dev, batch.DEFAULT_BATCH_CFG, smi, fused_twins)
     entries += stats_entries
-    mesh_entries, seg_err = run_mesh(dev, batch.DEFAULT_BATCH_CFG, smi)
-    seg_err["K1"] = max(seg_err["K1"], stats_k1_err)
-    for e in entries:  # K1 and K4 also ran with a shard count, K1 with stats
+    mesh_entries, seg_err, (e2e_mesh_counts, one_card) = run_mesh(dev, batch.DEFAULT_BATCH_CFG, smi)
+    cards_entries, cards_err = run_mesh_cards(dev, batch.DEFAULT_BATCH_CFG, smi, e2e_mesh_counts, one_card)
+    seg_err["K1"] = max(seg_err["K1"], stats_k1_err, cards_err["K1"])
+    seg_err["K4"] = max(seg_err["K4"], cards_err["K4"])
+    for e in entries:  # K1 and K4 also ran with a shard count and over cards, K1 with stats
         kid = e["name"].split()[0]
         if kid in seg_err:
             e["max_abs_err"] = max(e["max_abs_err"], seg_err[kid])
-    entries += mesh_entries
+    entries += mesh_entries + cards_entries
     # after every other analysis of this process, as a long-lived server
     # takes job after job
     run_service(dev, batch.DEFAULT_BATCH_CFG, smi)
@@ -306,7 +308,12 @@ def main():
 
 def run(dev, cfg, smi, k1_steps=64, rounds=16, steps_per_round=256):
     """Phases 2-4 on ``dev`` at ``cfg`` (the card at DEFAULT_BATCH_CFG;
-    a CPU rehearsal at a small config runs the same flow on the twins)."""
+    a CPU rehearsal at a small config runs the same flow on the twins).
+    Returns the kernels line's entries, and for becstress and BECToken
+    the main path's inputs and the twin's super-round on them, run with
+    stats (the histogram leaves the planes as they are), which phase 9
+    holds its stats super-rounds against: (code bank, batch, rounds,
+    steps a round, twin's output) by contract."""
     import numpy as np
     import torch
 
@@ -596,9 +603,12 @@ def run(dev, cfg, smi, k1_steps=64, rounds=16, steps_per_round=256):
     if on_card and (counts["K1"] != n_runs * rounds or counts["K1_steps"] != n_runs * rounds * steps_per_round
                     or counts["K2"] != 0):
         raise AssertionError(f"the main path did not run one K1 launch per round and no K2: {counts}")
+    fused_twins = {}
     for name, (cb, st) in inputs.items():
         out_k = results[name][0]
-        out_t = megakernel.run_fused_plain(cb, st, rounds, steps_per_round, True, pool0)
+        out_t = megakernel.run_fused_plain(cb, st, rounds, steps_per_round, True, pool0, with_stats=True)
+        if name != "inloop_demo":
+            fused_twins[name] = (cb, st, rounds, steps_per_round, out_t)
         same, err = planes_equal(out_k.st, out_t.st)
         ok = same and torch.equal(out_k.info, out_t.info) and torch.equal(out_k.pruned_visited, out_t.pruned_visited)
         max_err["K1"] = max(max_err["K1"], err)
@@ -826,7 +836,7 @@ def run(dev, cfg, smi, k1_steps=64, rounds=16, steps_per_round=256):
           "k4_state": {"moved": moved, "dying": dying_n},
           "main_path_ms": {name: {"wall": round(r[2], 3), "enqueue": round(r[3], 3), "rounds": r[1].rounds}
                            for name, r in results.items()}, "gpu": smi})
-    return kernels_line["kernels"]
+    return kernels_line["kernels"], fused_twins
 
 
 
@@ -1590,10 +1600,12 @@ runpy.run_module("mythril_tpu_torch", run_name="__main__", alter_sys=True)
 """
 
 
-def phase9(dev, cfg, hist_steps=64, slice_steps=512, rounds=16, steps_per_round=256):
+def phase9(dev, cfg, fused_twins, hist_steps=64, slice_steps=512):
     """Phase 9: K8, K9 and K1's stats instance against their twins, and
     the one-launch loops (a sync slice, a fused round with stats) against
-    the twins' loops. Returns a namespace: ``max_err`` (K8's and K9's own
+    the twins' loops; the stats super-round runs on the main path's
+    inputs against the twin that phase 3 ran with stats on them
+    (``fused_twins``, as ``run`` returns it). Returns a namespace: ``max_err`` (K8's and K9's own
     compares only), ``k1_err`` (K1's planes and histogram in the stats,
     slice and fused compares), the inputs that K8's and K9's timing
     reuses, and the slice's and super-round's walls."""
@@ -1709,11 +1721,8 @@ def phase9(dev, cfg, hist_steps=64, slice_steps=512, rounds=16, steps_per_round=
                              f"or no bin wrapped ({wrapped})")
 
     n_seeds = min(16, cfg.lanes // 4)
-    slice_in = {}
-    for name, code in contracts.items():
-        specs = [dict(sym) for _ in range(n_seeds // 2)] + seeds(0, n_seeds // 2)
-        slice_in[name] = (bank_for(code), batch.build_batch(cfg, specs, device=dev))
-    cb_s, st_s = slice_in["bectoken"]
+    specs = [dict(sym) for _ in range(n_seeds // 2)] + seeds(0, n_seeds // 2)
+    cb_s, st_s = bank_for(contracts["bectoken"]), batch.build_batch(cfg, specs, device=dev)
     out_t, ht = engine.run_plain(cb_s, st_s, slice_steps, True)
     walls, slice_counts = {}, {}
     for with_stats in (True, False):
@@ -1784,8 +1793,7 @@ def phase9(dev, cfg, hist_steps=64, slice_steps=512, rounds=16, steps_per_round=
 
     pool0 = inloop_solve.empty_pool(dev)
     fused_walls = {}
-    for name in ("becstress", "bectoken"):
-        cb_f, st_f = slice_in[name]
+    for name, (cb_f, st_f, rounds, steps_per_round, ft) in fused_twins.items():
         fused_walls[name] = {}
         for with_stats in (False, True):
             sync()
@@ -1802,7 +1810,6 @@ def phase9(dev, cfg, hist_steps=64, slice_steps=512, rounds=16, steps_per_round=
             if on_card and (c["K1"] != rounds or c["K1_stats"] != (rounds if with_stats else 0) or c["K8"]):
                 raise AssertionError(f"{name}: run_fused(with_stats={with_stats}) did not run one K1 launch a "
                                      f"round: {c}")
-        ft = megakernel.run_fused_plain(cb_f, st_f, rounds, steps_per_round, True, pool0, with_stats=True)
         err, where = batch_diff(fo.st, ft.st)
         err_h = diff(fo.hist, ft.hist)
         k1_err = max(k1_err, err, err_h)
@@ -1817,9 +1824,11 @@ def phase9(dev, cfg, hist_steps=64, slice_steps=512, rounds=16, steps_per_round=
                            slice_state=st_s, walls=walls, fused_walls=fused_walls)
 
 
-def run_stats_and_sync(dev, cfg, smi, cli_budget=60, sync_budget=("bectoken", 3, 120), slice_steps=512):
-    """Phases 9-11: phase9(), the CLI with --enable-iprof in a subprocess,
-    the sync slice loop end to end, and the times of K8 and K9. Returns
+def run_stats_and_sync(dev, cfg, smi, fused_twins, cli_budget=60, sync_budget=("bectoken", 3, 120),
+                       slice_steps=512):
+    """Phases 9-11: phase9() (``fused_twins`` from ``run``), the CLI
+    with --enable-iprof in a subprocess, the sync slice loop end to end,
+    and the times of K8 and K9. Returns
     the kernels line's entries for K8 and K9, and K1's largest plane or
     histogram error in phase 9's compares."""
     import tempfile
@@ -1840,7 +1849,7 @@ def run_stats_and_sync(dev, cfg, smi, cli_budget=60, sync_budget=("bectoken", 3,
         if on_card:
             torch.cuda.synchronize()
 
-    p9 = phase9(dev, cfg, slice_steps=slice_steps)
+    p9 = phase9(dev, cfg, fused_twins, slice_steps=slice_steps)
     max_err, contracts = p9.max_err, p9.contracts
     zero_counts, read_counts = launch_counters()
 
@@ -2423,7 +2432,7 @@ def run_mesh(dev, cfg, smi, rounds=4, steps_per_round=256, n_shards=8, e2e=("bec
         raise AssertionError(f"K4 (n_shards={n}) differs from the twin: {where}")
 
     # ---- 12b. the fused mesh super-round against the twin's -----------------
-    m = mesh.make_mesh(n, device=dev)
+    m = mesh.make_mesh(n, device=dev, cards=[dev])
     pool0 = inloop_solve.empty_pool(dev)
     n_seeds = min(16, per)
     results = {}
@@ -2452,7 +2461,8 @@ def run_mesh(dev, cfg, smi, rounds=4, steps_per_round=256, n_shards=8, e2e=("bec
         ok = (not err and torch.equal(out.info, ot.info) and torch.equal(out.pruned_visited, ot.pruned_visited)
               and torch.equal(out.hist, ot.hist))
         max_err["K1"] = max(max_err["K1"], err)
-        results[name] = (cb, st, stats, counts)
+        results[name] = (cb, st, stats, counts, out, dict(max_rounds=rounds, steps_per_round=steps_per_round,
+                                                          with_stats=with_stats, with_solve=True, pool=pool0))
         emit({"phase": "mesh_vs_twin", "contract": name, "shards": n, "with_stats": with_stats,
               "info": stats._asdict(), "retired": int(out.st.steps.sum()) + stats.pruned_steps,
               "wall_ms": round(wall, 3), "enqueue_ms": round((t_enq - t0) * 1e3, 3), "launches": counts,
@@ -2496,7 +2506,8 @@ def run_mesh(dev, cfg, smi, rounds=4, steps_per_round=256, n_shards=8, e2e=("bec
     # (the deal: one K12 call, one kernel launch of mesh.cu's deal)
     if on_card and (min(sync_counts[k] for k in ("K1", "K10", "K12")) <= 0 or sync_counts["K1"] != 1
                     or sync_counts["K9"] or sync_counts["mesh_steal"] != 1 or sync_counts["K11"]
-                    or sync_counts["K12"] != 1 or sync_counts["mesh_cu_launches"] != {"steal": 1, "deal": 1}):
+                    or sync_counts["K12"] != 1
+                    or sync_counts["mesh_cu_launches"] != {"steal": 1, "deal": 1, "cards": 0}):
         raise AssertionError(f"the sync mesh round did not launch one K1, one counting steal kernel and one "
                              f"K12 kernel: {sync_counts}")
 
@@ -2508,7 +2519,7 @@ def run_mesh(dev, cfg, smi, rounds=4, steps_per_round=256, n_shards=8, e2e=("bec
         cb_d = batch.make_code_bank([loop_code], cfg.code_len, device=dev)
         st_d = batch.build_batch(cfg_d, [dict(calldata=b"", gas=10_000_000)] * spinning, device=dev)
         before = read_counts()
-        out_d = megakernel.run_fused_mesh(mesh.make_mesh(n, device=dev), cb_d, None, st_d, max_rounds=4,
+        out_d = megakernel.run_fused_mesh(mesh.make_mesh(n, device=dev, cards=[dev]), cb_d, None, st_d, max_rounds=4,
                                           steps_per_round=64, with_solve=True, pool=pool0)
         stats = megakernel.decode_mesh_info(out_d.info, n)
         steps = int(out_d.st.steps.sum())
@@ -2531,7 +2542,7 @@ def run_mesh(dev, cfg, smi, rounds=4, steps_per_round=256, n_shards=8, e2e=("bec
             raise AssertionError(f"skew demo at {lanes_} lanes: {demos[lanes_]}, expected 1 steal of "
                                  f"{want_moved} lanes, occupancy {want_occ}")
 
-    # ---- 12e. the whole analysis over the mesh -------------------------------
+    # ---- 12e. the whole analysis over the mesh (8 virtual cards, one shard a card)
     e2e_counts = run_mesh_e2e(dev, cfg, smi, n, e2e)
 
     # ---- 12f. times ------------------------------------------------------------
@@ -2607,7 +2618,10 @@ def run_mesh(dev, cfg, smi, rounds=4, steps_per_round=256, n_shards=8, e2e=("bec
     # K10 and K11 are one kernel: K10's row is its plan (steal_plan on the
     # steal state), K11's its moves as the fused loop launches them (a
     # steal round that moves the steal state's lanes); each row's
-    # launches count the launches that did its function
+    # launches count the launches that did its function. Their main path
+    # is the one-card mesh's fused loop (12b): the analysis over the mesh
+    # (12e) runs on 8 virtual cards, whose steal is the cross-card
+    # exchange (run_mesh_cards' rows).
     by10 = {"e2e_mesh": e2e_counts["K10"], "fused_mesh": fused_mesh_counts["K10"], "sync_mesh": sync_counts["K10"]}
     by11 = {"e2e_mesh": e2e_counts["K11"], "fused_mesh": fused_mesh_counts["K11"],
             "skew_demos": sum(d["steal_launches"] for d in demos.values())}
@@ -2618,23 +2632,264 @@ def run_mesh(dev, cfg, smi, rounds=4, steps_per_round=256, n_shards=8, e2e=("bec
     sp, sr = steal_times["steal"]["steal_plan"], steal_times["steal"].get("steal_round", {})
     return [
         dict(entry("K10", "K10 mesh_steal (counts, plan)", "mythril_tpu_torch/csrc/mesh.cu",
-                   "mythril_tpu/laser/tpu/mesh.py:127", e2e_counts["K10"], sp["ms"], plain10, sp["bound_ms"], by10,
-                   sp["launch_ms"]), steal_round_ms=round_ms, steal_kernel_launches=kernel_launches),
+                   "mythril_tpu/laser/tpu/mesh.py:127", fused_mesh_counts["K10"], sp["ms"], plain10, sp["bound_ms"],
+                   by10, sp["launch_ms"]), steal_round_ms=round_ms, steal_kernel_launches=kernel_launches),
         dict(entry("K11", "K11 mesh_steal (moves)", "mythril_tpu_torch/csrc/mesh.cu",
-                   "mythril_tpu/laser/tpu/mesh.py:178", e2e_counts["K11"], sr.get("ms", 0.0), plain11,
+                   "mythril_tpu/laser/tpu/mesh.py:178", fused_mesh_counts["K11"], sr.get("ms", 0.0), plain11,
                    sr.get("bound_ms", 0.0), by11, sr.get("launch_ms")),
              steal_round_ms=round_ms, steal_kernel_launches=kernel_launches, moved=moved),
         dict(entry("K12", "K12 mesh_deal", "mythril_tpu_torch/csrc/mesh.cu",
                    "mythril_tpu/laser/tpu/mesh.py:83", sync_counts["K12"], ms12, plain12,
                    bytes12 / HBM_BYTES_PER_S * 1e3, by12),
              ms_device=round(ms12_device, 6), rebalance_ms=round(rebalance_ms, 6), rows_dealt=dealt),
-    ], {"K1": max_err["K1"], "K4": max_err["K4"]}
+    ], {"K1": max_err["K1"], "K4": max_err["K4"]}, (e2e_counts, {k: (r[0], r[1], r[5], r[4]) for k, r in results.items()})
+
+def card_row_bytes(st):
+    return sum(x[0].numel() * x.element_size() for x in st)
+
+
+def exchange_case_diff(dev, st, n, cards, devices=None):
+    """The cross-card exchange's three modes (mesh.CardExchange: each a
+    launch on every card) on ``st`` split over ``cards`` cards (virtual
+    cards of ``dev``, or ``devices``) against the twins on the same
+    lanes: the gathered counts in every card's buffer (XC_COUNT), each
+    card's batch after its plan and in-place moves, its steal word, held
+    counts and restaged continue bit (XC_PLAN), and the joined batch
+    after the pulls, which must be the one-batch layout's steal
+    (steal_plan_plain + steal_apply_plain on the joined batch, gated as
+    the fused loop gates it). Returns ({mode: error}, where, the twin's
+    plan, go, the lanes moved across cards)."""
+    import torch
+
+    from mythril_tpu_torch.laser.cuda import mesh
+
+    m = mesh.make_mesh(n, device=dev, cards=devices or [dev] * cards)
+    parts = [clone_batch(p) for p in mesh.shard_batch(st, m)]
+    orig = [clone_batch(p) for p in parts]
+    plan = mesh.steal_plan_plain(st, n)
+    go = int(plan.moved) > 0 and int(plan.occ.max()) - int(plan.occ.min()) > 1
+    want = mesh.steal_apply_plain(st, plan, n) if go else st
+    ctls = [torch.tensor([4, 1, 5, 0], dtype=torch.int32, device=p.pc.device) for p in parts]
+    ex = mesh.CardExchange(parts, n, ctls, 9)
+    err = {"XC_COUNT": 0, "XC_PLAN": 0, "XC_PULL": 0}
+    where = []
+    ex.count()
+    flat = torch.stack([plan.occ, plan.alive_c], 1).flatten().to(torch.int32)
+    for g in ex.gaths:
+        err["XC_COUNT"] = max(err["XC_COUNT"], tensor_diff(g.to(flat.device), flat))
+    ex.plan()
+    counts = flat.view(n, 2)
+    for k, (p, o) in enumerate(zip(parts, orig)):
+        tp, _send, tgo, tmoved = mesh.card_plan_plain(o, counts.to(o.pc.device), k, cards)
+        e, w = batch_diff(p, tp)
+        word = torch.tensor([int(tgo), tmoved, int(tgo), tmoved if tgo else 0], dtype=torch.int32)
+        e = max(e, tensor_diff(ex.mctls[k].cpu(), word), tensor_diff(ex.args[k].held.cpu(), flat.cpu()),
+                tensor_diff(ctls[k].cpu(), torch.tensor([4, 1, 5, int(int(plan.occ.sum()) > 0)], dtype=torch.int32)))
+        err["XC_PLAN"] = max(err["XC_PLAN"], e)
+        if w:
+            where.append(f"card {k} after XC_PLAN: {w}")
+    ex.pull()
+    e, w = batch_diff(mesh.gather_batch(mesh.PerCard(parts), m), want)
+    err["XC_PULL"] = e
+    if w:
+        where.append(f"after XC_PULL: {w}")
+    nl = n // cards
+    L = st.pc.shape[0]
+    per = L // n
+    dest_card = torch.div(plan.buf_pos.long(), per * nl, rounding_mode="floor")
+    donor_card = torch.div(torch.arange(L, device=plan.buf_pos.device), per * nl, rounding_mode="floor")
+    crossed = int((plan.export & (dest_card != donor_card)).sum()) if go else 0
+    return err, where, plan, go, crossed
+
+
+def run_mesh_cards(dev, cfg, smi, e2e_counts, one_card, rounds=4, steps_per_round=256, n_shards=8):
+    """Phase 12g, the fused mesh tier over several cards, each card
+    holding n / cards contiguous shards as a batch of its own, the steal
+    the cross-card exchange (XC_COUNT, XC_PLAN, XC_PULL; mesh.cu's
+    mesh_cards_kernel): the exchange's modes against the twins on the
+    steal kernel's compare batches over 2 and 8 virtual cards of the
+    card; run_fused_mesh over 2 and 8 virtual cards against the one-card
+    layout (every plane, info, pruned_visited, hist) on 12b's inputs,
+    against 12b's own outputs (``one_card``: contract -> (code bank,
+    batch, run_fused_mesh's arguments, output), each held against the
+    twin there), under torch's sync debug mode, with
+    the launches a round; the same over the host's real cards where it
+    has two or more; the skew demo over 2 cards; the times of the
+    super-round and of each mode. Returns the kernels line's entries for
+    the exchange's modes (launches: the analysis over 8 virtual cards,
+    12e) and the K1/K4 errors."""
+    import numpy as np
+    import torch
+
+    from mythril_tpu_torch.disassembler.asm import assemble
+    from mythril_tpu_torch.laser.cuda import batch, inloop_solve, kernels, megakernel, mesh
+
+    on_card = dev.type == "cuda"
+    L, n = cfg.lanes, n_shards
+    zero_counts, read_counts = launch_counters()
+    max_err = {"XC_COUNT": 0, "XC_PLAN": 0, "XC_PULL": 0, "K1": 0, "K4": 0}
+    rng = np.random.default_rng(20261020)
+    n_real = torch.cuda.device_count() if on_card else 0
+    real = min(mesh.n_devices(dev) if on_card else 0, kernels.MESH_MAX_CARDS)  # the cards that reach each other
+    while real >= 2 and n % real:
+        real -= 1
+    layouts = [("virtual", k, [dev] * k) for k in (2, 8)]
+    if real >= 2:
+        layouts.append(("real", real, [torch.device("cuda", i) for i in range(real)]))
+
+    def sync():
+        if on_card:
+            for d in range(max(1, n_real)):
+                torch.cuda.synchronize(d)
+
+    # ---- 12g-1. the exchange's modes against the twins --------------------
+    for kind in ("skew", "capacity", "ragged", "idle", "full_receivers"):
+        for lanes, nn in ((L, n), (L, 64), (64, 8)):
+            st = steal_case(cfg, dev, lanes, nn, kind, rng)
+            for label, k, devs in layouts:
+                if nn % k:
+                    continue
+                err, where, plan, go, crossed = exchange_case_diff(dev, st, nn, k, devs)
+                for mode, e in err.items():
+                    max_err[mode] = max(max_err[mode], e)
+                if any(err.values()):
+                    raise AssertionError(f"the exchange over {k} {label} cards differs from the twins on {kind} "
+                                         f"({lanes} lanes, {nn} shards): {err} {where}")
+    emit({"phase": "compare", "kernel": "XC_COUNT/XC_PLAN/XC_PULL", "cases": "steal_case kinds x (512 lanes, 8 "
+          "and 64 shards; 64 lanes, 8 shards)", "layouts": [(lb, k) for lb, k, _ in layouts], "err": max_err,
+          "ok": True})
+
+    # ---- 12g-2. the super-round over cards against the one-card layout ------
+    # on 12b's inputs, against 12b's outputs: 12b held those against the twin
+    pool0 = inloop_solve.empty_pool(dev)
+    phase_counts = {}
+    supers = {}
+    for name, (cb, st, kw, one) in one_card.items():
+        with_stats = kw["with_stats"]
+        if (kw["max_rounds"], kw["steps_per_round"]) != (rounds, steps_per_round):
+            raise AssertionError(f"12b ran {name} at {kw}, not {rounds} x {steps_per_round} steps")
+        one_stats = megakernel.decode_mesh_info(one.info, n)
+        for label, k, devs in layouts:
+            m = mesh.make_mesh(n, device=dev, cards=devs)
+            megakernel.run_fused_mesh(m, cb, None, st, **kw)  # first use: each card's kept scratch is made
+            sync()
+            zero_counts()
+            t0 = time.perf_counter()
+            if on_card:
+                torch.cuda.set_sync_debug_mode("error")
+            try:
+                out = megakernel.run_fused_mesh(m, cb, None, st, **kw)
+            finally:
+                if on_card:
+                    torch.cuda.set_sync_debug_mode("default")
+            t_enq = time.perf_counter()
+            stats = megakernel.decode_mesh_info(out.info, n)
+            sync()
+            wall = (time.perf_counter() - t0) * 1e3
+            counts = read_counts()
+            for key, v in counts.items():
+                phase_counts[key] = phase_counts.get(key, 0) + v
+            err, where = batch_diff(mesh.gather_batch(out.st, m), one.st)
+            ok = (not err and torch.equal(out.info, one.info) and torch.equal(out.pruned_visited, one.pruned_visited)
+                  and torch.equal(out.hist, one.hist))
+            max_err["K1"] = max(max_err["K1"], err)
+            want = {"K1": rounds * k, "K4": 2 * rounds * k, "XC_COUNT": (rounds + 1) * k, "XC_PLAN": rounds * k,
+                    "XC_PULL": rounds * k, "mesh_steal": 0, "K1_steps": rounds * k * steps_per_round,
+                    "K1_stats": rounds * k if with_stats else 0}
+            launches_ok = not on_card or all(counts[key] == v for key, v in want.items())
+            emit({"phase": "mesh_cards_vs_one_card", "contract": name, "cards": k, "layout": label, "shards": n,
+                  "with_stats": with_stats, "info": stats._asdict(), "one_card_info": one_stats._asdict(),
+                  "wall_ms": round(wall, 3), "enqueue_ms": round((t_enq - t0) * 1e3, 3), "launches": counts,
+                  "launches_expected": want, "ok": bool(ok and launches_ok)})
+            if not ok:
+                raise AssertionError(f"{name} over {k} {label} cards differs from the one-card layout: {where} "
+                                     f"info {out.info.tolist()} vs {one.info.tolist()}")
+            if not launches_ok:
+                raise AssertionError(f"{name} over {k} {label} cards: launches {counts}, expected {want}")
+        supers[name] = (cb, st, kw)
+
+    # ---- 12g-3. the skew demo over 2 cards ------------------------------------
+    cb_d = batch.make_code_bank([assemble(LOOP_SRC)], cfg.code_len, device=dev)
+    spinning = L // 4
+    st_d = batch.build_batch(cfg, [dict(calldata=b"", gas=10_000_000)] * spinning, device=dev)
+    kw_d = dict(max_rounds=4, steps_per_round=64, with_solve=True, pool=pool0)
+    one = megakernel.run_fused_mesh(mesh.make_mesh(n, device=dev, cards=[dev]), cb_d, None, st_d, **kw_d)
+    m2 = mesh.make_mesh(n, device=dev, cards=[dev] * 2)
+    two = megakernel.run_fused_mesh(m2, cb_d, None, st_d, **kw_d)
+    s1, s2 = megakernel.decode_mesh_info(one.info, n), megakernel.decode_mesh_info(two.info, n)
+    err, where = batch_diff(mesh.gather_batch(two.st, m2), one.st)
+    max_err["XC_PULL"] = max(max_err["XC_PULL"], err)
+    demo = {"spinning": spinning, "steal_events": s2.steal_events, "steal_lanes": s2.steal_lanes,
+            "occupancy": list(s2.occupancy), "one_card": [s1.steal_events, s1.steal_lanes, list(s1.occupancy)],
+            "steps": int(mesh.gather_batch(two.st, m2).steps.sum()), "steps_expected": spinning * 4 * 64}
+    emit({"phase": "mesh_cards_skew_demo", "lanes": L, "shards": n, "cards": 2, **demo, "ok": not err})
+    if err or (s2.steal_events, s2.steal_lanes, s2.occupancy) != (s1.steal_events, s1.steal_lanes, s1.occupancy) \
+            or s2.steal_events != 1 or demo["steps"] != demo["steps_expected"]:
+        raise AssertionError(f"the skew demo over 2 cards differs from the one-card layout: {where} {demo}")
+
+    # ---- 12g-4. times --------------------------------------------------------
+    ss = steal_case(cfg, dev, L, n, "skew", rng)
+    rb = card_row_bytes(ss)
+    times = {}
+    for label, k, devs in layouts:
+        m = mesh.make_mesh(n, device=dev, cards=devs)
+
+        def prep(upto, m=m):
+            parts = [clone_batch(p) for p in mesh.shard_batch(ss, m)]
+            ctls = [torch.tensor([4, 1, 5, 0], dtype=torch.int32, device=p.pc.device) for p in parts]
+            ex = mesh.CardExchange(parts, n, ctls, 9)
+            for step in (ex.count, ex.plan)[:upto]:
+                step()
+            return ex
+
+        row = {mode: round(events_ms(dev, fn, lambda u=u: prep(u)), 6) for mode, fn, u in (
+            ("XC_COUNT", lambda ex: ex.count(), 0), ("XC_PLAN", lambda ex: ex.plan(), 1),
+            ("XC_PULL", lambda ex: ex.pull(), 2), ("exchange", lambda ex: ex.steal_round(), 0))}
+        row["plain_ms"] = round(events_ms(dev, lambda parts: mesh.exchange_plain(parts, n), lambda m=m: mesh.PerCard(
+            clone_batch(p) for p in mesh.shard_batch(ss, m)), reps=5), 6)
+        cb_w, st_w, kw_w = supers["becstress"]
+        row["super_round_ms_becstress"] = round(events_ms(dev, lambda _: megakernel.run_fused_mesh(
+            m, cb_w, None, st_w, **kw_w), reps=3), 6)
+        _e, _w, plan, go, crossed = exchange_case_diff(dev, ss, n, k, devs)
+        moved = int(plan.moved)
+        nbytes = {"XC_COUNT": 5 * L + 8 * n * k,
+                  "XC_PLAN": 5 * L + 16 * n * k + 2 * moved * rb,
+                  "XC_PULL": 8 * n * k + 2 * crossed * rb}
+        row["bound_ms"] = {mode: round(b / HBM_BYTES_PER_S * 1e3, 9) for mode, b in nbytes.items()}
+        row["moved"], row["crossed"], row["row_bytes"] = moved, crossed, rb
+        times[f"{label}_{k}"] = row
+    one_card_ms = round(events_ms(dev, lambda _: megakernel.run_fused_mesh(
+        mesh.make_mesh(n, device=dev, cards=[dev]), supers["becstress"][0], None, supers["becstress"][1],
+        **supers["becstress"][2]), reps=3), 6)
+    emit({"phase": "timing_mesh_cards", "gpu": smi, "lanes": L, "shards": n, "steal_state": "skew",
+          "times": times, "super_round_ms_becstress_one_card": one_card_ms,
+          "real_cards": real if real >= 2 else "not available (device_count %d, %d reaching each other)" % (
+              n_real, mesh.n_devices(dev) if on_card else 0),
+          "resources": kernels.mesh_cards_info(dev) if on_card else None})
+
+    t2 = times["virtual_2"]
+    entries = []
+    for mode, name, replaces in (
+            ("XC_COUNT", "XC_COUNT mesh_cards (counts to every card)", "mythril_tpu/laser/tpu/mesh.py:142"),
+            ("XC_PLAN", "XC_PLAN mesh_cards (plan, moves in place, pack)", "mythril_tpu/laser/tpu/mesh.py:127"),
+            ("XC_PULL", "XC_PULL mesh_cards (imports from the send batches)", "mythril_tpu/laser/tpu/mesh.py:178")):
+        entries.append({"name": name, "route": "cuda", "source": "mythril_tpu_torch/csrc/mesh.cu",
+                        "replaces": replaces, "launches": e2e_counts[mode],
+                        "launches_by_path": {"e2e_mesh": e2e_counts[mode], "mesh_cards": phase_counts.get(mode, 0)},
+                        "max_abs_err": max_err[mode], "ms": t2[mode], "plain_ms": t2["plain_ms"],
+                        "bound_ms": t2["bound_ms"][mode], "bound_by": "bytes", "library_ms": None,
+                        "ms_by_layout": {lb: row[mode] for lb, row in times.items()},
+                        "bound_ms_by_layout": {lb: row["bound_ms"][mode] for lb, row in times.items()},
+                        "timed_on": f"the skew state ({L} lanes, {n} shards) over 2 virtual cards"})
+    return entries, {"K1": max_err["K1"], "K4": max_err["K4"]}
+
 
 def launch_counters():
     """(zero_counts, read_counts) over the launch counts of K1-K12 (and of
     K1's steps and stats instance; K10 and K11 count the steal kernel's
     launches that counted or planned, and that moved or decided whether
-    to, ``mesh_steal`` all its launches)."""
+    to, ``mesh_steal`` all its launches; XC_COUNT, XC_PLAN and XC_PULL the
+    cross-card exchange's, by mode)."""
     from mythril_tpu_torch.laser.cuda import engine, inloop_solve, keccak, megakernel, mesh, solver, transfer
 
     counters = {"K1": (engine, "launches"), "K1_steps": (engine, "steps_run"), "K1_stats": (engine, "stats_launches"),
@@ -2642,7 +2897,8 @@ def launch_counters():
                 "K5": (solver, "launches"), "K6": (transfer, "unpack_launches"), "K7": (transfer, "pack_launches"),
                 "K8": (engine, "hist_launches"), "K9": (engine, "slice_launches"),
                 "K10": (mesh, "plan_launches"), "K11": (mesh, "steal_launches"), "K12": (mesh, "deal_launches"),
-                "mesh_steal": (mesh, "launches")}
+                "mesh_steal": (mesh, "launches"), "XC_COUNT": (mesh, "xc_count_launches"),
+                "XC_PLAN": (mesh, "xc_plan_launches"), "XC_PULL": (mesh, "xc_pull_launches")}
 
     def zero_counts():
         for mod, attr in counters.values():
@@ -2656,8 +2912,11 @@ def launch_counters():
 
 def run_mesh_e2e(dev, cfg, smi, n=8, e2e=("bectoken", 3, 120)):
     """Phase 12e: one whole analysis through SymExecWrapper over a mesh of
-    n lane shards of the card (MYTHRIL_TPU_MESH=on, mesh.n_devices
-    patched to n). The kernels are built and the strategy warms its
+    n lane shards on n virtual cards of the card, one shard a card, the
+    layout production takes on a host of n cards (MYTHRIL_TPU_MESH=on,
+    mesh.n_devices patched to n, mesh.card_devices to n copies of the
+    card): each card holds its own lanes and the fused loop's steal is
+    the cross-card exchange. The kernels are built and the strategy warms its
     config itself, inside the run, as in the e2e phases. Beside the issue
     set it prints when the device engaged (the first upload of a round,
     seconds after the analysis started), how long the strategy's warmup
@@ -2714,9 +2973,10 @@ def run_mesh_e2e(dev, cfg, smi, n=8, e2e=("bectoken", 3, 120)):
             warm_s[0] += time.perf_counter() - t
 
     mesh_env = os.environ.get("MYTHRIL_TPU_MESH")
-    n_devices = mesh.n_devices
+    n_devices, card_devices = mesh.n_devices, mesh.card_devices
     os.environ["MYTHRIL_TPU_MESH"] = "on"
-    mesh.n_devices = lambda device="cuda": n  # n lane shards of the one card
+    mesh.n_devices = lambda device="cuda": n  # n lane shards ...
+    mesh.card_devices = lambda n_, device="cuda": (dev,) * n_  # ... one a virtual card of this card
     transfer.batch_to_device, backend._do_warmup = up_rec, warm_rec
     handoff = HandoffProbe()
     run_cfg = cfg
@@ -2748,7 +3008,7 @@ def run_mesh_e2e(dev, cfg, smi, n=8, e2e=("bectoken", 3, 120)):
                 break
             run_cfg = run_cfg._replace(device_engage_after_s=0.0)
     finally:
-        mesh.n_devices = n_devices
+        mesh.n_devices, mesh.card_devices = n_devices, card_devices
         transfer.batch_to_device, backend._do_warmup = orig_up, orig_warm
         backend.DEFAULT_BATCH_CFG = cfg
         if mesh_env is None:
@@ -2761,7 +3021,7 @@ def run_mesh_e2e(dev, cfg, smi, n=8, e2e=("bectoken", 3, 120)):
     phases = {ph: [cat.ROUND_PHASE_S.percentile(50, ph), cat.ROUND_PHASE_S.count(ph)]
               for ph in ("host_exec", "solve", "pack", "lift", "triage", "device_round")}
     expected, early = expected_issues("e2e_mesh", name, handoff.at)
-    emit({"phase": "e2e_mesh", "contract": name, "tx": tx, "budget_s": budget, "shards": n,
+    emit({"phase": "e2e_mesh", "contract": name, "tx": tx, "budget_s": budget, "shards": n, "virtual_cards": n,
           "device_engage_after_s": run_cfg.device_engage_after_s, "handoff": handoff.at,
           "handoff_before_loop": early, "issues": issues, "expected": expected, "wall_s": round(wall, 3),
           "strategy_warmup_s": round(warm_s[0], 3),
@@ -2782,15 +3042,19 @@ def run_mesh_e2e(dev, cfg, smi, n=8, e2e=("bectoken", 3, 120)):
         raise AssertionError(f"{name}: no fused mesh round ran")
     if strat.degraded_rounds or degraded or retry.BREAKER.state() != "closed":
         raise AssertionError(f"{name}: a round degraded over the mesh")
-    missing = [k for k in ("K1", "K4", "K6", "K7", "K10", "K11", "mesh_steal") if e2e_counts[k] <= 0]
+    missing = [k for k in ("K1", "K4", "K6", "K7", "XC_COUNT", "XC_PLAN", "XC_PULL") if e2e_counts[k] <= 0]
     if on_card and missing:
         raise AssertionError(f"kernels the mesh analysis never launched: {missing}")
-    # one steal launch a fused mesh round (a round's two K4 launches, the
-    # epilogue and the compaction after the steal; the strategy's warmup
-    # adds a K1 launch of its own), K10 and K11 not launched apart
-    if on_card and not (e2e_counts["mesh_steal"] == e2e_counts["K10"] == e2e_counts["K11"]
-                        and e2e_counts["K4"] == 2 * e2e_counts["mesh_steal"]):
-        raise AssertionError(f"the mesh analysis did not make one steal launch a round: {e2e_counts}")
+    # a fused mesh round is, on each card, K1, K3, the epilogue (K4), one
+    # launch of each exchange mode and the compaction after it (K4); each
+    # super-round counts once more before its first round. The one-card
+    # steal kernel does not run over cards.
+    if on_card and not (e2e_counts["XC_PLAN"] == e2e_counts["XC_PULL"]
+                        and e2e_counts["K4"] == 2 * e2e_counts["XC_PLAN"]
+                        and e2e_counts["XC_COUNT"] > e2e_counts["XC_PLAN"]
+                        and (e2e_counts["XC_COUNT"] - e2e_counts["XC_PLAN"]) % n == 0
+                        and e2e_counts["mesh_steal"] == 0):
+        raise AssertionError(f"the mesh analysis did not run the exchange once a round on each card: {e2e_counts}")
     return e2e_counts
 
 

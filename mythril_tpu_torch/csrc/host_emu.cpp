@@ -3,8 +3,9 @@
 // standing in for the grids (and K1's rank, K3 and K4 run thread by
 // thread between their barriers) of step.cu, inloop.cu, megakernel.cu,
 // keccak.cu, solve.cu, transfer.cu, hist.cu, slice.cu and mesh.cu. Built with g++ by
-// tests/test_torch_kernel_logic.py, tests/test_torch_mesh_kernels.py and
-// tests/test_torch_transfer.py; never used on the card.
+// tests/test_torch_kernel_logic.py, tests/test_torch_mesh_kernels.py,
+// tests/test_torch_mesh_cards.py and tests/test_torch_transfer.py; never
+// used on the card.
 #include <stdint.h>
 
 #include "hist.cuh"
@@ -427,6 +428,82 @@ int emu_mesh_deal(const Planes* Pp, const Planes* Sp, int n, int32_t* order, int
     each(nthreads, reverse,
          [&](int t) { mesh_move_units(ms[b], (uint32_t)(b * nthreads + t), G, MESH_FROM_SCRATCH); });
   });
+  return 0;
+}
+
+// The cross-card exchange (mesh.cu mesh_cards_kernel): one launch on card
+// ``card`` of nblocks blocks of nthreads threads, each block's parts run
+// thread by thread between its barriers (warp 0's collective steps over
+// the arrays), in either order, a block's shared memory filled with a
+// pattern first. XC_PLAN's blocks all plan before any block moves (its
+// grid barrier); XC_PULL's blocks each move right after their own plan
+// (it has no barrier). X holds host pointers: the CPU "cards".
+int emu_mesh_cards(const Planes* Pp, const Planes* Sd, const CardPeers* X, int n, int card, int cards, int mode,
+                   int32_t* held, int32_t* mctl, int32_t* ctl, int max_rounds, int nblocks, int nthreads,
+                   int reverse) {
+  const Planes& P = *Pp;
+  if (cards < 1 || cards > MESH_MAX_CARDS || card < 0 || card >= cards || n % cards || n > MESH_MAX_SHARDS) return 2;
+  const int nl = n / cards;
+  if (P.L < 1 || P.L % nl || Sd->L < P.L || mode < XC_COUNT || mode > XC_PULL) return 2;
+  if (nblocks < 1 || nthreads < P.L || nthreads < 64 || nthreads % 32 || nthreads > MESH_MAX_LANES) return 3;
+  if (ctl && !ctl[1]) return 0;
+  const int per = P.L / nl;
+  std::vector<MeshShared> ms(nblocks);
+  const uint32_t G = (uint32_t)(nblocks * nthreads);
+  auto plan = [&](int b) {
+    MeshShared& m = ms[b];
+    for (int i = 0; i < (int)sizeof(MeshShared); ++i) ((uint8_t*)&m)[i] = (uint8_t)(0xA5 ^ i);
+    for (int w = 0; w < MESH_MAX_WARPS; ++w) m.ballot[w][0] = m.ballot[w][1] = 0;  // the ballots' OR below
+    // (a)
+    each(nthreads, reverse, [&](int t) {
+      mesh_unit_fields(P, m, t, nthreads, Sd);
+      if (mode != XC_PULL) {
+        const uint8_t bits = mesh_lane_bits(P, nullptr, MESH_PLAN, t);
+        m.ballot[t >> 5][0] |= (uint32_t)(bits & 1) << (t & 31);
+        m.ballot[t >> 5][1] |= (uint32_t)((bits >> 1) & 1) << (t & 31);
+      }
+      if (mode != XC_COUNT)
+        for (int i = t; i < 2 * n; i += nthreads) m.gc[i] = mode == XC_PLAN ? X->gath[card][i] : held[i];
+      if (t == 0) m.peers = X;
+    });
+    if (mode == XC_COUNT) {
+      mesh_warp_counts(m, nthreads >> 5);
+      each(nthreads, reverse, [&](int t) { mesh_card_counts(m, *X, per, nl, card, cards, t); });
+      return;
+    }
+    // (b)
+    mesh_units_prefix(m);
+    if (mode == XC_PLAN) mesh_warp_counts(m, nthreads >> 5);
+    mesh_gathered_total(m, n);
+    each(32, reverse, [&](int j) { mesh_shard_pair(m, n * per, n, j, true); });
+    mesh_warp_scans(m);
+    each(32, reverse, [&](int j) { mesh_shard_bases(m, n * per, n, MESH_STEAL_ROUND_FLAGS, j); });
+    mesh_card_run(m, nl, card, mode);
+    // (c)
+    each(nthreads, reverse, [&](int t) {
+      if (mode == XC_PULL) {
+        mesh_card_pull_plan(m, per, n, nl, card, t);
+        return;
+      }
+      if (b == 0 && t == 0) mesh_card_commit(m, n, held, mctl, ctl, max_rounds);
+      mesh_card_lane_plan(m, per, n, nl, card, t);
+    });
+  };
+  auto moves = [&](int b) {  // (d)
+    if (mode == XC_COUNT || !ms[b].nmove) return;
+    each(nthreads, reverse, [&](int t) {
+      mesh_move_units(ms[b], (uint32_t)(b * nthreads + t), G, mode == XC_PLAN ? MESH_STEAL_MOVES : MESH_FROM_PEERS);
+    });
+  };
+  if (mode == XC_PLAN) {
+    each(nblocks, reverse, plan);
+    each(nblocks, reverse, moves);
+  } else {
+    each(nblocks, reverse, [&](int b) {
+      plan(b);
+      moves(b);
+    });
+  }
   return 0;
 }
 }

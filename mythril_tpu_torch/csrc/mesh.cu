@@ -1,5 +1,7 @@
-// K10/K11 mesh_steal and K12 mesh_deal: the mesh tiers on one card.
-// The mesh is n contiguous lane blocks of one batch (mesh.cuh).
+// K10/K11 mesh_steal and K12 mesh_deal: the mesh tiers on one card, where
+// the mesh is n contiguous lane blocks of one batch (mesh.cuh); and
+// mesh_cards_kernel, the fused loop's steal when the shards lie on
+// several cards (the cross-card exchange, further down).
 //
 // mesh_steal_kernel is K10 and K11 in one kernel (replaces
 // mythril_tpu/laser/tpu/mesh.py:127 steal_plan with :237 occupancy_impl,
@@ -164,8 +166,88 @@ __global__ void __launch_bounds__(MESH_THREADS, 1)
   mesh_move_units(ms, gtid, G, MESH_FROM_SCRATCH);
 }
 
-// kernel launches made by this library: the steal kernel's, the deal's
-static long long mesh_kernel_launches[2];
+// The cross-card exchange (mesh.cuh): one kernel in three modes, each one
+// cooperative launch on each card (XC_COUNT one block; XC_PLAN and XC_PULL
+// the card's resident blocks), on the card's own stream and under its
+// device. X holds every card's gathered buffer and send batch; on real
+// cards those are peer pointers (mt_mesh_enable_peers), on virtual cards
+// of one device local ones. XC_COUNT stores the card's counts into every
+// card's gathered buffer; XC_PLAN plans from the card's own gathered
+// buffer, moves its exporters (in place, or into its send batch Sd) and
+// holds the counts; XC_PULL plans from the held counts and copies the
+// card's imports out of the donors' send batches. Only XC_PLAN reads a
+// plane that its moves write (the running bits), so only it meets at a
+// grid barrier between plan and moves; XC_PULL's plan reads no plane and
+// its moves write only free lanes. The host orders the modes across
+// cards with events (megakernel.run_fused_mesh).
+//
+// Bound on the H100: bytes. XC_COUNT reads 5 bytes a lane of the card and
+// stores 8 bytes a shard to each card; XC_PLAN reads 5 bytes a lane and
+// 8 n of counts and moves each exported row once (read, written to its
+// target or send row); XC_PULL reads 8 n and moves each imported row
+// once, across the link on real cards.
+__global__ void __launch_bounds__(MESH_THREADS, 1)
+    mesh_cards_kernel(Planes P, const __grid_constant__ Planes Sd, const __grid_constant__ CardPeers X, int n,
+                      int card, int cards, int mode, int32_t* held, int32_t* mctl, int32_t* ctl, int max_rounds) {
+  if (ctl && !ctl[1]) return;
+  __shared__ MeshShared ms;
+  const int t = threadIdx.x, nl = n / cards, per = P.L / nl;
+  // (a) the card's lanes; the counts the plan starts from
+  mesh_unit_fields(P, ms, t, blockDim.x, &Sd);
+  if (mode != XC_PULL) {
+    const uint8_t b = mesh_lane_bits(P, nullptr, MESH_PLAN, t);
+    const uint32_t b0 = __ballot_sync(0xffffffffu, b & 1), b1 = __ballot_sync(0xffffffffu, b & 2);
+    if ((t & 31) == 0) {
+      ms.ballot[t >> 5][0] = b0;
+      ms.ballot[t >> 5][1] = b1;
+    }
+  }
+  if (mode != XC_COUNT)
+    for (int i = t; i < 2 * n; i += blockDim.x) ms.gc[i] = mode == XC_PLAN ? X.gath[card][i] : held[i];
+  if (t == 0) ms.peers = &X;
+  __syncthreads();
+  if (mode == XC_COUNT) {
+    if (t < 32) mesh_warp_counts(ms, blockDim.x >> 5, t);
+    __syncthreads();
+    mesh_card_counts(ms, X, per, nl, card, cards, t);
+    return;
+  }
+  // (b) the shard scalars from the gathered counts; warp 1 sums the unit table meanwhile
+  if (t == 32) mesh_units_prefix(ms);
+  if (t < 32) {
+    if (mode == XC_PLAN) mesh_warp_counts(ms, blockDim.x >> 5, t);
+    mesh_gathered_total(ms, n, t);
+    __syncwarp();
+    mesh_shard_pair(ms, n * per, n, t, true);
+    __syncwarp();
+    mesh_warp_scans(ms, t);
+    __syncwarp();
+    mesh_shard_bases(ms, n * per, n, MESH_STEAL_ROUND_FLAGS, t);
+    __syncwarp();
+    if (t == 0) mesh_card_run(ms, nl, card, mode);
+  }
+  __syncthreads();
+  const uint32_t gtid = blockIdx.x * blockDim.x + t, G = gridDim.x * blockDim.x;
+  if (mode == XC_PLAN) {
+    // (c)
+    if (blockIdx.x == 0 && t == 0) mesh_card_commit(ms, n, held, mctl, ctl, max_rounds);
+    mesh_card_lane_plan(ms, per, n, nl, card, t);
+    __syncthreads();
+    if (!ms.nmove) return;
+    cg::this_grid().sync();  // counts against moves
+    // (d)
+    mesh_move_units(ms, gtid, G, MESH_STEAL_MOVES);
+    return;
+  }
+  mesh_card_pull_plan(ms, per, n, nl, card, t);
+  __syncthreads();
+  if (!ms.nmove) return;
+  mesh_move_units(ms, gtid, G, MESH_FROM_PEERS);
+}
+
+// kernel launches made by this library: the steal kernel's, the deal's,
+// the cross-card exchange's
+static long long mesh_kernel_launches[3];
 
 static int mesh_args_ok(const Planes* P, int n, int nfields) {
   if (nfields != NFIELDS) return 0;
@@ -202,10 +284,13 @@ MT_EXPORT int mt_mesh_steal(const Planes* P, int n, int flags, uint8_t* export_,
 
 // out = [registers per thread, local bytes per thread (spills and stack),
 // static shared bytes per block, threads per block, blocks resident per
-// SM, SMs] of the steal kernel (which 0) or the deal (which 1): what
-// chip_smoke.py prints beside their times.
+// SM, SMs] of the steal kernel (which 0), the deal (which 1) or the
+// cross-card exchange (which 2): what chip_smoke.py prints beside their
+// times.
 MT_EXPORT int mt_mesh_info(int* out, int which) {
-  const void* kernel = which ? (const void*)mesh_deal_kernel : (const void*)mesh_steal_kernel;
+  const void* kernel = which == 2 ? (const void*)mesh_cards_kernel
+                       : which    ? (const void*)mesh_deal_kernel
+                                  : (const void*)mesh_steal_kernel;
   cudaFuncAttributes a;
   cudaError_t e = cudaFuncGetAttributes(&a, kernel);
   if (e) return (int)e;
@@ -247,9 +332,73 @@ MT_EXPORT int mt_mesh_deal(const Planes* P, const Planes* Sc, int n, int32_t* or
   return (int)cudaGetLastError();
 }
 
-// out = [steal kernel launches, deal kernel launches] made so far
+// One launch of the cross-card exchange on card ``card`` of ``cards`` (the
+// current device must be that card's): P the card's batch (n / cards
+// shards), Sd its send batch (P's row sizes, at least P's lanes), X every
+// card's buffers, held i32[2n], mctl i32[4]; ctl (the fused loop's control
+// word, or null): the launch does nothing once ctl[1] is 0.
+MT_EXPORT int mt_mesh_cards(const Planes* P, const Planes* Sd, const CardPeers* X, int n, int card, int cards,
+                            int mode, int32_t* held, int32_t* mctl, int32_t* ctl, int max_rounds, int nfields,
+                            cudaStream_t stream) {
+  if (cards < 1 || cards > MESH_MAX_CARDS || card < 0 || card >= cards || n % cards) return (int)cudaErrorInvalidValue;
+  const int nl = n / cards;
+  if (nfields != NFIELDS || n > MESH_MAX_SHARDS || P->L <= 0 || P->L > MESH_MAX_LANES || P->L % nl) {
+    return (int)cudaErrorInvalidValue;
+  }
+  if (mode < XC_COUNT || mode > XC_PULL || Sd->L < P->L) return (int)cudaErrorInvalidValue;
+  for (int f = 0; f < NFIELDS; ++f)
+    if (Sd->row_bytes[f] != P->row_bytes[f]) return (int)cudaErrorInvalidValue;
+  int grid = 1;
+  if (mode != XC_COUNT) {
+    static int cache[MAX_DEVICES];
+    int err = mesh_resident_blocks((const void*)mesh_cards_kernel, cache, &grid);
+    if (err) return err;
+    if (grid < 1) return (int)cudaErrorCooperativeLaunchTooLarge;
+  }
+  Planes Pv = *P, Sv = *Sd;
+  CardPeers Xv = *X;
+  void* args[] = {&Pv, &Sv, &Xv, &n, &card, &cards, &mode, (void*)&held, (void*)&mctl, (void*)&ctl, &max_rounds};
+  int err = (int)cudaLaunchCooperativeKernel((const void*)mesh_cards_kernel, dim3(grid), dim3(MESH_THREADS), args,
+                                             0, stream);
+  if (err) {
+    cudaGetLastError();
+    return err;
+  }
+  ++mesh_kernel_launches[2];
+  return (int)cudaGetLastError();
+}
+
+// Lets each of the k devices in devs read and write the others' memory.
+// Fails with cudaErrorPeerAccessUnsupported where a pair of distinct
+// cards cannot reach each other; a device listed twice needs nothing.
+MT_EXPORT int mt_mesh_enable_peers(const int* devs, int k) {
+  int cur;
+  cudaError_t e = cudaGetDevice(&cur);
+  if (e) return (int)e;
+  for (int i = 0; i < k; ++i) {
+    for (int j = 0; j < k; ++j) {
+      if (devs[i] == devs[j]) continue;
+      int ok = 0;
+      if ((e = cudaDeviceCanAccessPeer(&ok, devs[i], devs[j]))) return (int)e;
+      if (!ok) return (int)cudaErrorPeerAccessUnsupported;
+      if ((e = cudaSetDevice(devs[i]))) return (int)e;
+      e = cudaDeviceEnablePeerAccess(devs[j], 0);
+      if (e == cudaErrorPeerAccessAlreadyEnabled) {
+        cudaGetLastError();
+      } else if (e) {
+        cudaSetDevice(cur);
+        return (int)e;
+      }
+    }
+  }
+  return (int)cudaSetDevice(cur);
+}
+
+// out = [steal kernel launches, deal kernel launches, cross-card exchange
+// launches] made so far
 MT_EXPORT int mt_mesh_launches(long long* out) {
   out[0] = mesh_kernel_launches[0];
   out[1] = mesh_kernel_launches[1];
+  out[2] = mesh_kernel_launches[2];
   return 0;
 }

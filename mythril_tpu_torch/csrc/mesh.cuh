@@ -43,6 +43,39 @@
 // at its rank among the moving lanes; then the grid copies the moving
 // rows into rows 0.. of a scratch batch and, after one grid barrier,
 // from there into their slots (mesh_move_units).
+//
+// The cross-card exchange (mesh_cards_kernel) is the steal of the fused
+// mesh tier when the n shards lie on several cards, nl = n / cards
+// contiguous shards a card, each card's batch its own lanes (card k holds
+// shards k nl .. k nl + nl - 1). It reuses the parts above in three
+// modes, each one launch on each card:
+//  XC_COUNT: (a) over the card's lanes, warp 0's scan, then a thread a
+//      (card, own shard) pair stores the shard's [running, alive] into
+//      that card's gathered buffer (i32[2n], every card's copy of the
+//      reference's all_gather, mesh.py:142);
+//  XC_PLAN: every block loads the gathered counts (the card's own
+//      buffer) and derives the shard scalars from them (part (b) with
+//      gathered counts: the same plan on every card), ranks the card's
+//      running lanes from its own ballots (part (c)), and the grid moves
+//      the card's exporters (part (d)): to a target lane of its own
+//      shards in place, or to row gidx - donor_base[first own shard] of
+//      the card's send batch; either way the exporter dies with its
+//      MESH_KILLED planes zeroed. Block 0 writes mctl (mesh_commit),
+//      copies the counts into the card's held buffer (XC_PULL reads
+//      that, so the next round's XC_COUNT may overwrite the gathered
+//      buffer once every card has planned) and stages the loop's next
+//      continue bit from the mesh-wide running total (the reference's
+//      psum in its loop condition);
+//  XC_PULL: every block derives the plan from the held counts again and
+//      copies each row another card exported to this card from that
+//      card's send batch (a peer pointer; on virtual cards of one device
+//      a local one) into its target lane: import i of the card is global
+//      index recv_base[first own shard] + i, its donor the shard whose
+//      [donor_base, donor_base + surplus) holds it (the reference's
+//      place, mesh.py:221-224).
+// The exports of a card are one run of global donor indices, and its
+// imports one run of global receiver indices, because both bases are
+// exclusive cumsums over the shards and a card's shards are contiguous.
 #pragma once
 #include "common.cuh"
 
@@ -50,6 +83,19 @@
 #define MESH_MAX_LANES 1024
 #define MESH_MAX_WARPS (MESH_MAX_LANES / 32)
 #define MESH_BATCH 4  // units a thread loads before it stores any
+#define MESH_MAX_CARDS 8
+
+// the cross-card exchange's modes (mesh_cards_kernel)
+#define XC_COUNT 0
+#define XC_PLAN 1
+#define XC_PULL 2
+
+// what one card's exchange launch sees of every card (passed by value):
+// each card's gathered-count buffer (i32[2n]) and its send batch's planes
+struct CardPeers {
+  int32_t* gath[MESH_MAX_CARDS];
+  void* send[MESH_MAX_CARDS][NFIELDS];
+};
 
 // flags. Count only (0: occupancy_impl); MESH_PLAN: the steal plan
 // (steal_plan); MESH_MOVE alone: the moves of the plan given in export_,
@@ -62,6 +108,7 @@
 #define MESH_GATE_SPREAD 2
 #define MESH_ACCUM 4
 #define MESH_MOVE 8
+#define MESH_STEAL_ROUND_FLAGS (MESH_PLAN | MESH_GATE_SPREAD | MESH_ACCUM | MESH_MOVE)
 
 // the planes an exporter has zeroed (mesh.py:210-215): its copy owns them
 #define MESH_KILLED ((1ull << F_ALIVE) | (1ull << F_STEPS) | (1ull << F_STATIC_PRUNED) | (1ull << F_VISITED))
@@ -88,7 +135,13 @@ struct MeshShared {
   int32_t dbase[MESH_MAX_SHARDS], rbase[MESH_MAX_SHARDS], rend[MESH_MAX_SHARDS];
   int32_t wv[4][32];  // warp 0, a lane's two shards: surplus and deficit sums (then scanned), min and max occ
   int32_t moved, go, nmove;
-  int16_t mv_src[MESH_MAX_LANES], mv_dst[MESH_MAX_LANES];  // move m: exporter lane, target lane
+  // move m: source lane (or, XC_PULL, the donor card's send row) and
+  // target lane (a negative target -1 - r: row r of the card's send batch)
+  int16_t mv_src[MESH_MAX_LANES], mv_dst[MESH_MAX_LANES];
+  int8_t mv_card[MESH_MAX_LANES];    // XC_PULL: move m's donor card, -1 for a move made in place by XC_PLAN
+  int32_t gc[2 * MESH_MAX_SHARDS];   // the cross-card modes: the gathered [running, alive] of every shard
+  int32_t total, lo;                 // the cross-card modes: running lanes mesh-wide; the card's first move
+  const CardPeers* peers;            // XC_PULL: the cards' send batches
   // A lane's row of every plane as one list of units: plane f's row is
   // units ustart[f] .. ustart[f + 1] - 1, each 1 << ushift[f] bytes (16,
   // 4 or 1: the widest its row size and base, and the scratch plane's
@@ -145,14 +198,23 @@ MT_DEV int32_t mesh_count_at(const MeshShared& ms, int l) {
 }
 
 // part (b), lane j of warp 0: shards 2j and 2j + 1 (mesh.py:150-166):
-// counts, fair-share target, surplus, deficit capped by free lanes
-MT_DEV void mesh_shard_pair(MeshShared& ms, int L, int n, int j) {
+// counts, fair-share target, surplus, deficit capped by free lanes. L is
+// the mesh's lanes; with ``gathered`` the counts and their total come
+// from gc and total (the cross-card modes), else from the block's ballots.
+MT_DEV void mesh_shard_pair(MeshShared& ms, int L, int n, int j, bool gathered = false) {
   const int per = L / n;
-  const int total = mp_run(mesh_count_at(ms, L)), base = total / n, rem = total - base * n;
+  const int total = gathered ? ms.total : mp_run(mesh_count_at(ms, L)), base = total / n, rem = total - base * n;
   int32_t sur = 0, def = 0, lo = 0x7fffffff, hi = -1;
   for (int s = 2 * j; s < 2 * j + 2 && s < n; ++s) {
-    const int32_t c0 = mesh_count_at(ms, s * per), c1 = mesh_count_at(ms, (s + 1) * per);
-    const int occ = mp_run(c1) - mp_run(c0), free_ = per - (mp_alive(c1) - mp_alive(c0));
+    int occ, free_;
+    if (gathered) {
+      occ = ms.gc[2 * s];
+      free_ = per - ms.gc[2 * s + 1];
+    } else {
+      const int32_t c0 = mesh_count_at(ms, s * per), c1 = mesh_count_at(ms, (s + 1) * per);
+      occ = mp_run(c1) - mp_run(c0);
+      free_ = per - (mp_alive(c1) - mp_alive(c0));
+    }
     const int target = base + (s < rem ? 1 : 0);
     const int su = occ > target ? occ - target : 0;
     const int de0 = target > occ ? target - occ : 0;
@@ -200,6 +262,13 @@ MT_DEV void mesh_shard_bases(MeshShared& ms, int L, int n, int flags, int j) {
 }
 
 #ifdef MT_HOST_EMU
+// the cross-card modes' total of the gathered running counts
+static void mesh_gathered_total(MeshShared& ms, int n) {
+  int32_t v = 0;
+  for (int s = 0; s < n; ++s) v += ms.gc[2 * s];
+  ms.total = v;
+}
+
 // part (b)'s warp-collective steps on the host: the same results over
 // the arrays, as scan.cuh's rank_scan_warps
 static void mesh_warp_counts(MeshShared& ms, int nwarps) {
@@ -225,6 +294,15 @@ static void mesh_warp_scans(MeshShared& ms) {
   for (int i = 0; i < 32; ++i) ms.wv[2][i] = lo, ms.wv[3][i] = hi;
 }
 #else
+// lane j of warp 0: the cross-card modes' total of the gathered running
+// counts (its two shards, summed over the warp)
+__device__ __forceinline__ void mesh_gathered_total(MeshShared& ms, int n, int j) {
+  int32_t v = 0;
+  for (int s = 2 * j; s < 2 * j + 2 && s < n; ++s) v += ms.gc[2 * s];
+  v = __reduce_add_sync(0xffffffffu, v);
+  if (j == 0) ms.total = v;
+}
+
 // lane j of warp 0: the warps' packed counts, exclusive scan by shuffles
 __device__ __forceinline__ void mesh_warp_counts(MeshShared& ms, int nwarps, int j) {
   const int32_t v = j < nwarps ? mesh_warp_total(ms, j) : 0;
@@ -338,9 +416,11 @@ MT_DEV int mesh_field_of(const MeshShared& ms, int v) {
 }
 
 // what mesh_move_units copies: the steal's moves (exporter row to target
-// row, the exporter's MESH_KILLED planes zeroed), or the deal's two
-// halves (moving row m to scratch row m; scratch row m to its slot)
-enum MeshMoveDir { MESH_STEAL_MOVES, MESH_TO_SCRATCH, MESH_FROM_SCRATCH };
+// row, or to a row of the card's send batch, the exporter's MESH_KILLED
+// planes zeroed), the deal's two halves (moving row m to scratch row m;
+// scratch row m to its slot), or the cross-card pull (a row of another
+// card's send batch to its target lane)
+enum MeshMoveDir { MESH_STEAL_MOVES, MESH_TO_SCRATCH, MESH_FROM_SCRATCH, MESH_FROM_PEERS };
 
 // part (d), thread gtid of the grid's G: units gtid, gtid + G, ... of the
 // nmove moved rows (unit u: move u / U, unit u % U of the row), each
@@ -370,13 +450,22 @@ MT_DEV void mesh_move_units(const MeshShared& ms, uint32_t gtid, uint32_t G, int
       buf[k] = z;
       if (u >= total) continue;
       const uint32_t m = u / U, v = u - m * U;
+      if (dir == MESH_FROM_PEERS && ms.mv_card[m] < 0) continue;
       const int f = mesh_field_of(ms, (int)v);
       sft[k] = ms.ushift[f];
       kill[k] = dir == MESH_STEAL_MOVES && ((MESH_KILLED >> f) & 1);
       const int64_t off = (int64_t)(v - (uint32_t)ms.ustart[f]) << sft[k];
-      uint8_t* scr = dir == MESH_STEAL_MOVES ? nullptr : ms.sbase[f] + ms.rb[f] * m + off;
-      src[k] = dir == MESH_FROM_SCRATCH ? scr : ms.base[f] + ms.rb[f] * ms.mv_src[m] + off;
-      dst[k] = dir == MESH_TO_SCRATCH ? scr : ms.base[f] + ms.rb[f] * ms.mv_dst[m] + off;
+      if (dir == MESH_FROM_PEERS) {
+        src[k] = (uint8_t*)ms.peers->send[ms.mv_card[m]][f] + ms.rb[f] * ms.mv_src[m] + off;
+        dst[k] = ms.base[f] + ms.rb[f] * ms.mv_dst[m] + off;
+      } else {
+        uint8_t* scr = dir == MESH_STEAL_MOVES ? nullptr : ms.sbase[f] + ms.rb[f] * m + off;
+        src[k] = dir == MESH_FROM_SCRATCH ? scr : ms.base[f] + ms.rb[f] * ms.mv_src[m] + off;
+        const int dl = ms.mv_dst[m];
+        dst[k] = dir == MESH_TO_SCRATCH ? scr
+                 : dl < 0               ? ms.sbase[f] + ms.rb[f] * (-1 - dl) + off
+                                        : ms.base[f] + ms.rb[f] * dl + off;
+      }
       if (sft[k] == 4) buf[k] = *(const mt_u4*)src[k];
       else if (sft[k] == 2) buf[k].x = *(const uint32_t*)src[k];
       else buf[k].x = *src[k];
@@ -420,4 +509,81 @@ MT_DEV void mesh_deal_record(MeshShared& ms, int L, int n, bool writer, int32_t*
   const int m = mp_alive(mesh_count_at(ms, t));
   ms.mv_src[m] = (int16_t)t;
   ms.mv_dst[m] = (int16_t)slot;
+}
+
+// -- the cross-card exchange (mesh_cards_kernel) ------------------------
+
+// XC_COUNT, thread t after warp 0's scan of the card's ballots: pair t =
+// (card k, own shard s) stores own shard s's [running, alive] at shard
+// card * nl + s of card k's gathered buffer.
+MT_DEV void mesh_card_counts(const MeshShared& ms, const CardPeers& X, int per, int nl, int card, int cards,
+                             int t) {
+  if (t >= nl * cards) return;
+  const int k = t / nl, s = t - k * nl;
+  const int32_t c0 = mesh_count_at(ms, s * per), c1 = mesh_count_at(ms, (s + 1) * per);
+  int32_t* g = X.gath[k] + 2 * (card * nl + s);
+  g[0] = mp_run(c1) - mp_run(c0);
+  g[1] = mp_alive(c1) - mp_alive(c0);
+}
+
+// XC_PLAN and XC_PULL, thread 0 after part (b): the card's run of moves.
+// XC_PLAN moves the card's exports, global donor indices [lo, lo +
+// nmove); XC_PULL its imports, global receiver indices [lo, lo + nmove)
+// (lo into ms.lo).
+// Both are empty unless the plan says steal (go).
+MT_DEV void mesh_card_run(MeshShared& ms, int nl, int card, int mode) {
+  const int s0 = card * nl, s1 = s0 + nl - 1;
+  const int lo = mode == XC_PLAN ? ms.dbase[s0] : ms.rbase[s0];
+  const int hi = mode == XC_PLAN ? ms.dbase[s1] + ms.surplus[s1] : ms.rend[s1];
+  const int k = (ms.moved < hi ? ms.moved : hi) - lo;
+  ms.nmove = ms.go && k > 0 ? k : 0;
+  ms.lo = lo;
+}
+
+// XC_PLAN part (c), thread t (the card's lane t): lane t's export, as
+// mesh_lane_plan ranks it (its rank among its shard's running lanes from
+// the card's ballots; the shard scalars from the gathered counts). Move
+// m = gidx - lo: to lane alive_c[dest] + slot of dest's block when dest
+// is one of the card's shards, else to row m of the card's send batch.
+MT_DEV void mesh_card_lane_plan(MeshShared& ms, int per, int n, int nl, int card, int t) {
+  if (t >= nl * per || !ms.nmove || !((ms.ballot[t >> 5][0] >> (t & 31)) & 1)) return;
+  const int sl = t / per, s = card * nl + sl;
+  const int rank = mp_run(mesh_count_at(ms, t)) - mp_run(mesh_count_at(ms, sl * per));
+  const int keep = ms.occ[s] - ms.surplus[s], gidx = ms.dbase[s] + rank - keep;
+  if (rank < keep || gidx >= ms.moved) return;
+  const int dest = mesh_dest(ms, n, gidx), slot = gidx - ms.rbase[dest], m = gidx - ms.lo;
+  ms.mv_src[m] = (int16_t)t;
+  ms.mv_dst[m] = (int16_t)(dest / nl == card ? (dest - card * nl) * per + ms.alive_c[dest] + slot : -1 - m);
+}
+
+// XC_PULL, thread i: import i of the card, global index gidx = lo + i:
+// its target lane alive_c[dest] + slot of dest's block, its donor shard
+// the first d with donor_base[d] + surplus[d] > gidx, and its row in the
+// donor card's send batch gidx - donor_base[donor card's first shard].
+// An import from one of the card's own shards was placed by XC_PLAN.
+MT_DEV void mesh_card_pull_plan(MeshShared& ms, int per, int n, int nl, int card, int i) {
+  if (i >= ms.nmove) return;
+  const int gidx = ms.lo + i;
+  const int dest = mesh_dest(ms, n, gidx), slot = gidx - ms.rbase[dest];
+  int a = 0, b = n;
+  while (a < b) {
+    const int mid = (a + b) >> 1;
+    if (ms.dbase[mid] + ms.surplus[mid] <= gidx) a = mid + 1;
+    else b = mid;
+  }
+  const int dc = a / nl;
+  ms.mv_card[i] = (int8_t)(dc == card ? -1 : dc);
+  ms.mv_src[i] = (int16_t)(gidx - ms.dbase[dc * nl]);
+  ms.mv_dst[i] = (int16_t)((dest - card * nl) * per + ms.alive_c[dest] + slot);
+}
+
+// XC_PLAN, block 0's thread 0 after part (b): the steal decision and its
+// counters into mctl, the gathered counts into held (XC_PULL's input),
+// and, in the fused loop (ctl), the staged continue bit from the
+// mesh-wide running total: ctl[2] is the round K4 staged.
+MT_DEV void mesh_card_commit(const MeshShared& ms, int n, int32_t* held, int32_t* mctl, int32_t* ctl,
+                             int max_rounds) {
+  mesh_commit(ms, MESH_STEAL_ROUND_FLAGS, mctl);
+  for (int i = 0; i < 2 * n; ++i) held[i] = ms.gc[i];
+  if (ctl) ctl[3] = ctl[2] < max_rounds && ms.total > 0 ? 1 : 0;
 }

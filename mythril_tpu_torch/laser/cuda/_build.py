@@ -114,10 +114,12 @@ def resolve_device(device) -> torch.device:
 
 
 def check_on(device, *tensors) -> torch.device:
-    """Resolve ``device`` and insist that every tensor lies on it."""
+    """Resolve ``device`` and insist that every tensor lies on it: on its
+    type, and on its card where ``device`` names one ("cuda:1"; a bare
+    "cuda" is whichever card the tensors are on)."""
     dev = resolve_device(device)
     for t in tensors:
-        if t.device.type != dev.type:
+        if t.device.type != dev.type or (dev.index is not None and t.device.index != dev.index):
             raise KernelError(f"tensor on {t.device}, entry point asked to run on {dev}")
     return dev
 

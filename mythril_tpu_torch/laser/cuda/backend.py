@@ -29,13 +29,16 @@ tiers are ported: the fused super-round, and the synchronous slice loop
 slices) that the reference takes when ``MYTHRIL_TPU_FUSED=off`` or the
 breaker is half-open. Stats mode (``--enable-iprof``) adds the
 retired-opcode histogram to either tier, folded inside K1's launches.
-When ``mesh.n_devices`` (1 until the shards can span several cards,
-so production runs the single-device tiers; the tests patch it) is
-above 1 and ``_mesh_tier`` allows it, a round runs on the mesh tiers instead: the fused
-mesh super-round (megakernel.run_fused_mesh: forks, pruning and
-compaction per lane shard, work-stealing between rounds, K10/K11) or
-the sync mesh loop (mesh.sharded_round: one K1 launch, the deal K12,
-the occupancy K10). A kernel failure (KernelError, or a CUDA fault torch
+When ``mesh.n_devices`` (the host's CUDA cards that reach each other's
+memory; 1 on the CPU, on a one-card host and where no pair of cards has
+peer access, where production runs the single-device tiers; the tests
+patch it) is above 1 and ``_mesh_tier`` allows it, a round runs on the
+mesh tiers instead: the fused mesh super-round (megakernel.run_fused_mesh:
+forks, pruning and compaction per lane shard, work-stealing between
+rounds; one shard a card, each card holding its own lanes, with the
+cross-card exchange, or n shards of one card's batch with K10/K11) or
+the sync mesh loop on the first card (mesh.sharded_round: one K1 launch,
+the deal K12, the occupancy K10). A kernel failure (KernelError, or a CUDA fault torch
 reports after a launch) is never turned into a host round: every
 degrade handler re-raises it.
 """
@@ -895,21 +898,27 @@ def _run_device(cb, st, cfg, want_stats=False, deadline=None, bridge=None):
 
 
 def _run_device_mesh(cb, st, n_shards, tier, want_stats, deadline, bridge):
-    """The mesh tiers of ``_run_device`` over ``n_shards`` lane shards."""
+    """The mesh tiers of ``_run_device`` over ``n_shards`` lane shards, on
+    the cards ``mesh.make_mesh`` gives (one shard a card where the host
+    has as many). The fused tier splits the batch over the cards; the
+    sync tier places forks over all lanes, as the reference's GSPMD
+    round does, so it runs the whole batch on the first card. Either
+    returns the batch whole, on the first card."""
     from mythril_tpu_torch.laser.cuda import mesh as mesh_lib
 
     if bridge is not None:
         # per-shard download bucketing (transfer.batch_to_host) keys off
         # this: the mesh compaction leaves one dense prefix PER shard
         bridge.mesh_n_shards = n_shards
-    mesh = mesh_lib.make_mesh(n_shards, device=DEVICE)
-    st = mesh_lib.shard_batch(st, mesh)
-    cb, env = mesh_lib.put_replicated((cb, default_env()), mesh)
     if tier == "fused":
         return _run_mesh_fused(
-            mesh, n_shards, cb, env, st, want_stats=want_stats,
-            deadline=deadline, bridge=bridge,
+            mesh_lib.make_mesh(n_shards, device=DEVICE), n_shards, cb, default_env(), st,
+            want_stats=want_stats, deadline=deadline, bridge=bridge,
         )
+    # the first card alone: no other card's memory is reached, so no peer access
+    mesh = mesh_lib.make_mesh(n_shards, device=DEVICE, cards=[DEVICE])
+    st = mesh_lib.shard_batch(st, mesh)
+    cb, env = mesh_lib.put_replicated((cb, default_env()), mesh)
 
     # sync degrade tier: one sharded round per dispatch. Quiescence and
     # rebalance gating both read the occupancy vector the PREVIOUS
@@ -961,9 +970,16 @@ def _run_mesh_fused(
     (megakernel.run_fused_mesh). Host-sync cadence and totals
     accounting mirror _run_device_fused; the info vector additionally
     carries the steal counters and the per-shard frontier occupancy,
-    which feed the myth_mesh_* gauges without any extra device fetch."""
+    which feed the myth_mesh_* gauges without any extra device fetch.
+    Over several cards the batch stays split between dispatches; after
+    each it is joined on the first card for the ring drain (and split
+    again when the drain resumed lanes), and it returns joined."""
     from mythril_tpu_torch.laser.cuda import megakernel
+    from mythril_tpu_torch.laser.cuda import mesh as mesh_lib
 
+    whole = st
+    st = mesh_lib.shard_batch(st, mesh)
+    cb, env = mesh_lib.put_replicated(cb, mesh), mesh_lib.put_replicated(env, mesh)
     k = _pick_fused_k()
     rounds_left = k
     hist = None
@@ -1061,13 +1077,13 @@ def _run_mesh_fused(
             obs.TRACER.end_cut("fused_round")
         rounds_left -= max(1, stats.rounds)
         resumed = False
+        whole = mesh_lib.gather_batch(st, mesh)
         if bridge is not None:
-            from mythril_tpu_torch.laser.cuda import mesh as mesh_lib
-
-            drained = _drain_ss_rings(bridge, st)
-            if drained is not st:
+            drained = _drain_ss_rings(bridge, whole)
+            if drained is not whole:
                 # resumed TRAP_SS lanes invalidate the fetched running
                 # count; let the next dispatch re-derive it
+                whole = drained
                 st = mesh_lib.shard_batch(drained, mesh)
                 resumed = True
         if not resumed and stats.n_running == 0:
@@ -1076,7 +1092,7 @@ def _run_mesh_fused(
     if bridge is not None:
         bridge.fused_round_info = totals
         bridge.fused_pruned_visited = pruned_visited
-    return st, hist
+    return whole, hist
 
 
 def _hist_to_host(hist):

@@ -163,6 +163,8 @@ _SIGS = {
     ("mesh", "mt_mesh_info"): [_V, _I],
     ("mesh", "mt_mesh_deal"): [_P(Planes), _P(Planes), _I, _V, _I, _V],
     ("mesh", "mt_mesh_launches"): [_V],
+    ("mesh", "mt_mesh_cards"): [_P(Planes), _P(Planes), _V] + [_I] * 4 + [_V] * 3 + [_I, _I, _V],
+    ("mesh", "mt_mesh_enable_peers"): [_V, _I],
 }
 
 # K4 flags (csrc/megakernel.cuh) and the steal kernel's (csrc/mesh.cuh)
@@ -175,6 +177,11 @@ MESH_MOVE = 8
 MESH_STEAL_ROUND = MESH_PLAN | MESH_GATE_SPREAD | MESH_ACCUM | MESH_MOVE
 MESH_MAX_SHARDS = 64
 MESH_MAX_LANES = 1024
+MESH_MAX_CARDS = 8
+# the cross-card exchange's modes (csrc/mesh.cuh)
+XC_COUNT = 0
+XC_PLAN = 1
+XC_PULL = 2
 
 
 def _fn(lib: str, name: str):
@@ -263,6 +270,11 @@ def mesh_steal_info(dev) -> dict:
 def mesh_deal_info(dev) -> dict:
     """K12's compiled resources, as ``step_run_info``."""
     return dict(zip(_INFO_KEYS, _kernel_info("mesh", "mt_mesh_info", dev, 6, 1)))
+
+
+def mesh_cards_info(dev) -> dict:
+    """The cross-card exchange's compiled resources, as ``step_run_info``."""
+    return dict(zip(_INFO_KEYS, _kernel_info("mesh", "mt_mesh_info", dev, 6, 2)))
 
 
 def solve_info(dev, C: int, V: int, threads: int = 0) -> dict:
@@ -476,11 +488,11 @@ def launch_mesh_steal(a: MeshArgs, flags: int) -> None:
 
 def mesh_kernel_launches() -> dict:
     """The kernel launches ``csrc/mesh.cu`` has made in this process:
-    ``steal`` (the steal kernel) and ``deal`` (K12's kernel), counted in
-    C where each launch is made."""
-    out = (ctypes.c_longlong * 2)()
+    ``steal`` (the steal kernel), ``deal`` (K12's kernel) and ``cards``
+    (the cross-card exchange), counted in C where each launch is made."""
+    out = (ctypes.c_longlong * 3)()
     _fn("mesh", "mt_mesh_launches")(ctypes.cast(out, ctypes.c_void_p))
-    return {"steal": int(out[0]), "deal": int(out[1])}
+    return {"steal": int(out[0]), "deal": int(out[1]), "cards": int(out[2])}
 
 
 class DealScratch:
@@ -524,3 +536,84 @@ def launch_mesh_deal(st: StateBatch, n: int) -> torch.Tensor:
                                       _build.stream(st.pc.device))
     _build.check(rc, "mesh_deal", "mesh")
     return sc.order
+
+
+class CardPeers(ctypes.Structure):
+    """Every card's gathered-count buffer and send batch (csrc/mesh.cuh)."""
+
+    _fields_ = [("gath", ctypes.c_void_p * MESH_MAX_CARDS),
+                ("send", (ctypes.c_void_p * NFIELDS) * MESH_MAX_CARDS)]
+
+
+class CardArgs:
+    """The cross-card exchange (``mesh_cards_kernel``, csrc/mesh.cu) on
+    card ``card`` of a mesh of ``n`` shards over ``len(sends)`` cards: the
+    card's batch ``st``, every card's send batch and gathered buffer
+    (``gaths``, i32[2n] each), and the card's ``held`` (i32[2n]) and
+    ``mctl`` (i32[4], as ``MeshArgs``), checked and built once per loop.
+    The launches run on the stream current for ``st``'s device when this
+    was built. A send batch has the card's row sizes and at least its
+    lanes; the kernels copy rows in 16-byte units where every batch's
+    planes are 16-byte aligned, which a fresh allocation is."""
+
+    def __init__(self, st: StateBatch, n: int, card: int, sends, gaths, held, mctl, ctl=None, max_rounds: int = 0):
+        dev = st.pc.device
+        cards = len(sends)
+        L = st.pc.shape[0]
+        if not 1 <= cards <= MESH_MAX_CARDS or n % cards or n > MESH_MAX_SHARDS or L % (n // cards):
+            raise _build.KernelError(f"{n} shards do not split over {cards} cards (at most {MESH_MAX_CARDS}) "
+                                     f"and {L} lanes a card")
+        if L > MESH_MAX_LANES:
+            raise _build.KernelError(f"the exchange takes at most {MESH_MAX_LANES} lanes a card, not {L}")
+        for t, name, numel in ((held, "held", 2 * n), (mctl, "mctl", 4)):
+            _checked(t, name, torch.int32, dev)
+            if t.numel() != numel:
+                raise _build.KernelError(f"{name} must hold {numel} int32")
+        if ctl is not None:
+            _checked(ctl, "ctl", torch.int32, dev)
+        CL = st.visited.shape[1]
+        self.pl = planes(st, 1, CL)
+        self.sd = planes(sends[card], 1, CL)
+        self.peers = CardPeers()
+        for k, (snd, g) in enumerate(zip(sends, gaths)):
+            if g.dtype != torch.int32 or g.numel() != 2 * n or not g.is_contiguous():
+                raise _build.KernelError("a gathered buffer must be a contiguous int32[2n]")
+            self.peers.gath[k] = g.data_ptr()
+            for f, x in enumerate(snd):
+                if x.shape[1:] != getattr(st, StateBatch._fields[f]).shape[1:] or x.shape[0] < L:
+                    raise _build.KernelError(f"send batch {k}'s {StateBatch._fields[f]} does not fit card {card}'s")
+                if x.data_ptr() % 16:
+                    raise _build.KernelError(f"send batch {k}'s {StateBatch._fields[f]} is not 16-byte aligned")
+                self.peers.send[k][f] = x.data_ptr()
+        self.keep = (st, sends, gaths, held, mctl, ctl)  # the tensors behind the pointers
+        self.held, self.mctl, self.ctl = held, mctl, ctl
+        self.n, self.card, self.cards, self.max_rounds = int(n), int(card), cards, int(max_rounds)
+        self.dev = dev
+        self.stream = _build.stream(dev) if dev.type == "cuda" else None
+
+
+def launch_mesh_cards(a: CardArgs, mode: int, ctl=True) -> None:
+    """One launch of the cross-card exchange on ``a``'s card in ``mode``
+    (XC_COUNT, XC_PLAN, XC_PULL), under that card's device (its grid is
+    sized for it). ``ctl`` False launches without the loop's control word
+    (the count before a super-round's first round)."""
+    c = a.ctl if ctl else None
+    with torch.cuda.device(a.dev):
+        rc = _fn("mesh", "mt_mesh_cards")(
+            ctypes.byref(a.pl), ctypes.byref(a.sd), ctypes.byref(a.peers), a.n, a.card, a.cards, mode,
+            _vp(a.held), _vp(a.mctl), _vp(c), a.max_rounds, NFIELDS, a.stream)
+    _build.check(rc, "mesh_cards", "mesh")
+
+
+def enable_peers(devices) -> None:
+    """Let every distinct CUDA device of ``devices`` reach the others'
+    memory; raises where a pair cannot (there is no host fallback)."""
+    idx = sorted({torch.cuda.current_device() if torch.device(d).index is None else torch.device(d).index
+                  for d in devices})
+    if len(idx) < 2:
+        return
+    arr = (ctypes.c_int * len(idx))(*idx)
+    rc = _fn("mesh", "mt_mesh_enable_peers")(ctypes.cast(arr, ctypes.c_void_p), len(idx))
+    if rc:
+        raise _build.KernelError(f"peer access between cards {idx} is not available: CUDA error {rc} "
+                                 f"({_build.library('mesh').mt_error_string(rc).decode()})")

@@ -247,9 +247,23 @@ def decode_mesh_info(info, n_shards: int) -> MeshFusedStats:
     return MeshFusedStats(*vals[:8], tuple(vals[8:8 + n_shards]), vals[8 + n_shards])
 
 
-def _mesh_info(r, acc, sev, sln, out: StateBatch, n: int):
-    occ = (out.alive & (out.status == RUNNING)).to(torch.int32).view(n, -1).sum(1).to(torch.int32)
-    n_alive = out.alive.to(torch.int32).sum().to(torch.int32)
+def _fold_cards(xs, d0, op):
+    out = xs[0]
+    for x in xs[1:]:
+        out = op(out, x.to(d0))
+    return out
+
+
+def _mesh_info(r, acc, sev, sln, out, n: int):
+    """The fused mesh info vector of ``out``, a batch or its per-card
+    split (then on the first card)."""
+    parts = out if isinstance(out, (list, tuple)) and not isinstance(out, StateBatch) else [out]
+    d0 = parts[0].pc.device
+    nl = n // len(parts)
+    occs = [(p.alive & (p.status == RUNNING)).to(torch.int32).view(nl, -1).sum(1).to(torch.int32).to(d0)
+            for p in parts]
+    occ = occs[0] if len(occs) == 1 else torch.cat(occs)
+    n_alive = _fold_cards([p.alive.to(torch.int32).sum().to(torch.int32) for p in parts], d0, torch.add)
     head = torch.stack([r.to(torch.int32), acc[0], acc[1], acc[2], n_alive, occ.sum().to(torch.int32),
                         sev.to(torch.int32), sln.to(torch.int32)])
     return torch.cat([head, occ, acc[3:4]])
@@ -278,6 +292,13 @@ def run_fused_mesh(
     i32[9 + n] (``decode_mesh_info``); ``hist`` sums over the shards and
     ``pruned_visited`` ORs over them, as the reference's psums do.
 
+    Over several cards (``mesh.cards`` > 1) ``st`` is the whole batch or
+    its ``mesh.PerCard`` split (``mesh.shard_batch``), and ``out.st`` the
+    split: each card runs K1, K3 and K4 over its own n / cards shards and
+    the steal is the cross-card exchange (``_run_fused_mesh_cards``);
+    ``info``, ``pruned_visited`` and ``hist`` lie on the first card and
+    equal the one-card layout's for the same n shards.
+
     On the card ``max_rounds x (K1 + K3 + K4 + steal + K4)`` launches
     are queued with no host sync (with stats, K1's stats instance folds
     the histogram inside its launch); the round's control word is
@@ -285,6 +306,8 @@ def run_fused_mesh(
     (the reference's body is round + steal). The caller fetches ``info``
     once."""
     n = mesh.n
+    if mesh.cards > 1:
+        return _run_fused_mesh_cards(mesh, cb, env, st, max_rounds, steps_per_round, with_stats, with_solve, pool)
     L = st.pc.shape[0]
     if L % n != 0:
         raise ValueError(f"lane count {L} not divisible by mesh size {n}")
@@ -355,3 +378,118 @@ def run_fused_mesh_plain(cb, st, n_shards, max_rounds, steps_per_round, with_sol
         r += 1
     t = lambda v: torch.tensor(v, dtype=torch.int32, device=dev)  # noqa: E731
     return FusedOut(s, _mesh_info(t(r), acc, t(sev), t(sln), s, n), pv, hist)
+
+
+# -- the fused mesh super-round over several cards ---------------------
+
+
+def _run_fused_mesh_cards(mesh, cb, env, st, max_rounds, steps_per_round, with_stats, with_solve, pool):
+    """``run_fused_mesh`` over ``mesh.cards`` cards. Each round, on each
+    card under its device and on its stream: K1 over the card's
+    ``nl = n / cards`` shards (forks placed per shard, as under
+    shard_map), K3, K4 staging the next control word; then the
+    cross-card exchange (``mesh.CardExchange``: the counts gathered into
+    every card, the same plan on every card with the continue bit
+    restaged from the mesh-wide running total, the moves in place and
+    into the send batches, the pulls); then each card's compaction
+    gated on its steal word, committing its control word. Every card's
+    control word takes the same values, so the cards run the same
+    rounds. The host fetches nothing: the caller fetches ``info`` once.
+    On CPU cards the twins run the same steps (``run_fused_mesh_cards_plain``)."""
+    from mythril_tpu_torch.laser.cuda import kernels, mesh as mesh_lib
+
+    n, cards, max_rounds = mesh.n, mesh.cards, int(max_rounds)
+    nl = n // cards
+    parts = mesh_lib.shard_batch(st, mesh)
+    cbs = mesh_lib.put_replicated(cb, mesh)
+    envs = mesh_lib.put_replicated(env, mesh) if env is not None else [None] * cards
+    devs = [_build.check_on(d, p.pc, c.code) for d, p, c in zip(mesh.devices, parts, cbs)]
+    if pool is None:
+        pool = inloop_solve.empty_pool(devs[0])
+    pools = mesh_lib.put_replicated(pool, mesh)
+    if devs[0].type == "cpu":
+        return run_fused_mesh_cards_plain(cbs, parts, n, max_rounds, steps_per_round, with_solve, pools, with_stats)
+    cs = []
+    for k, d in enumerate(devs):
+        with torch.cuda.device(d):
+            s = StateBatch(*(x.clone() for x in parts[k]))
+            L = s.pc.shape[0]
+            c = dict(s=s, cb=cbs[k], env=envs[k], pool=pools[k], dev=d,
+                     pv=torch.zeros(cbs[k].code.shape, dtype=torch.bool, device=d),
+                     acc=torch.zeros(4, dtype=torch.int32, device=d),
+                     ctl=torch.zeros(4, dtype=torch.int32, device=d),
+                     unsat=torch.zeros(L, dtype=torch.bool, device=d),
+                     hist=torch.zeros(256 if with_stats else 1, dtype=torch.int32, device=d),
+                     scratch=StateBatch(*(torch.empty_like(x) for x in s)))
+            c["args"] = kernels.StepArgs(cbs[k], s, nl)
+            c["k3"] = kernels.UnsatArgs(pools[k], s, c["ctl"], c["unsat"]) if with_solve else None
+            c["k4"] = kernels.EpilogueArgs(cbs[k], s, c["unsat"], c["acc"], c["pv"], c["ctl"], max_rounds,
+                                           c["scratch"], nl)
+            cs.append(c)
+    ex = mesh_lib.CardExchange([c["s"] for c in cs], n, [c["ctl"] for c in cs], max_rounds)
+    ex.start()
+    for _ in range(max_rounds):
+        for c in cs:
+            with torch.cuda.device(c["dev"]):
+                engine.step_n(c["cb"], c["env"], c["s"], steps_per_round, device=c["dev"], ctl=c["ctl"], inplace=True,
+                              args=c["args"], n_shards=nl, hist=c["hist"] if with_stats else None)
+                if with_solve:
+                    inloop_solve.unsat_mask(c["pool"], c["s"], device=c["dev"], ctl=c["ctl"], out=c["unsat"],
+                                            args=c["k3"])
+                round_epilogue(c["cb"], c["s"], c["unsat"], c["acc"], c["pv"], c["ctl"], max_rounds, c["scratch"], nl,
+                               flags=0, args=c["k4"])
+        ex.steal_round()
+        for c, mctl in zip(cs, ex.mctls):
+            with torch.cuda.device(c["dev"]):
+                round_epilogue(c["cb"], c["s"], c["unsat"], c["acc"], c["pv"], c["ctl"], max_rounds, c["scratch"], nl,
+                               flags=kernels.EPI_COMMIT | kernels.EPI_COMPACT_ONLY, gate=mctl, args=c["k4"])
+    d0 = devs[0]
+    parts = mesh_lib.PerCard(c["s"] for c in cs)
+    with torch.cuda.device(d0):
+        acc = _fold_cards([c["acc"] for c in cs], d0, torch.add)
+        info = _mesh_info(cs[0]["ctl"][0], acc, ex.mctls[0][2], ex.mctls[0][3], parts, n)
+        pv = _fold_cards([c["pv"] for c in cs], d0, torch.logical_or)
+        hist = _fold_cards([c["hist"] for c in cs], d0, torch.add)
+    return FusedOut(parts, info, pv, hist)
+
+
+def run_fused_mesh_cards_plain(cbs, parts, n_shards, max_rounds, steps_per_round, with_solve, pools,
+                               with_stats=False) -> FusedOut:
+    """The twin of the cross-card super-round: each card's round over its
+    own shards, then the exchange's twins (``mesh.exchange_plain``) and,
+    when it stole, each card's compaction. It syncs to evaluate the loop
+    condition on the host. Equal to ``run_fused_mesh_plain`` on the
+    joined batch, plane for plane."""
+    from mythril_tpu_torch.laser.cuda import mesh as mesh_lib
+
+    cards = len(parts)
+    nl = n_shards // cards
+    d0 = parts[0].pc.device
+    accs = [torch.zeros(4, dtype=torch.int32, device=p.pc.device) for p in parts]
+    pvs = [torch.zeros(cb.code.shape, dtype=torch.bool, device=cb.code.device) for cb in cbs]
+    hists = [torch.zeros(256 if with_stats else 1, dtype=torch.int32, device=p.pc.device) for p in parts]
+    r = sev = sln = 0
+    parts = list(parts)
+    while r < max_rounds and any(bool(_any_running(p)) for p in parts):
+        for k, (cb, pool) in enumerate(zip(cbs, pools)):
+            s = parts[k]
+            for _ in range(steps_per_round):
+                ns = engine.step_plain(cb, s, nl)
+                if with_stats:
+                    hists[k] = engine.op_hist_update_plain(cb, s, ns, hists[k])
+                s = ns
+            unsat = (inloop_solve.unsat_mask_plain(pool, s) if with_solve
+                     else torch.zeros(s.pc.shape[0], dtype=torch.bool, device=s.pc.device))
+            parts[k] = round_epilogue_plain(cb, s, unsat, accs[k], pvs[k], nl)
+        parts, go, moved = mesh_lib.exchange_plain(parts, n_shards)
+        parts = list(parts)
+        if go:
+            parts = [compact_plain(p, nl) for p in parts]
+            sev += 1
+            sln += moved
+        r += 1
+    t = lambda v: torch.tensor(v, dtype=torch.int32, device=d0)  # noqa: E731
+    acc = _fold_cards(accs, d0, torch.add)
+    info = _mesh_info(t(r), acc, t(sev), t(sln), parts, n_shards)
+    return FusedOut(mesh_lib.PerCard(parts), info, _fold_cards(pvs, d0, torch.logical_or),
+                    _fold_cards(hists, d0, torch.add))

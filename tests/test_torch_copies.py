@@ -64,6 +64,7 @@ EDITED = {
 # relative path -> why its comments or docstrings differ (its code may not)
 TEXT_EDITED = {
     "support/keccak.py": "the docstring names the port's batched kernel, not the JAX one",
+    "support/benchmeter.py": "the docstrings name the port's cuda-batch strategy, not the JAX one",
     "disassembler/asm.py": "the corpus the docstring names lives in the reference package",
     "analysis/static_pass/blocks.py": "the docstring names the port's code bank constructor",
     # comments that named the change which introduced the code

@@ -212,10 +212,13 @@ def test_planned_mesh_factor(monkeypatch):
 
 
 def test_n_devices_is_one_device():
-    # the shards of a Mesh share one device, so production never takes
-    # the mesh on its own, however many cards the host has
+    # one device on the CPU and on a host with one card or none: the
+    # mesh counts the cards that reach each other's memory, so production
+    # takes it only on a host with two or more such cards
     assert mesh.n_devices("cpu") == 1
-    assert mesh.n_devices("cuda") == 1
+    assert 1 <= mesh.n_devices("cuda") <= max(1, torch.cuda.device_count())
+    if torch.cuda.device_count() < 2:
+        assert mesh.n_devices("cuda") == 1
     assert mesh.make_mesh(8, device="cpu") is mesh.make_mesh(8, device="cpu")
     assert mesh.make_mesh(device="cpu").n == 1
 

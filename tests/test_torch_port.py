@@ -153,3 +153,104 @@ def test_ab_main_runs_turns_and_holds_digests(tmp_path, capsys, case, rc):
         else:
             assert r["arg"] == "7" and r["path"] == str(tmp_path / r["tree"])
     assert lines[4] == {"outputs_agree": case != "digests_differ", "differ": ["x"] if case == "digests_differ" else []}
+
+
+# -- no host sync inside the device loops ------------------------------------
+
+# The loops that queue a super-round on the card: the bodies of every loop
+# of these functions, and these methods whole (the cross-card exchange's
+# steps, which the loop calls each round). A host read there would pin a
+# sync into every round (the reference lints its fused loops the same way,
+# scripts/lint.py's device_loop_purity).
+_LOOP_FUNCTIONS = {
+    "laser/cuda/megakernel.py": ("run_fused", "run_fused_mesh", "_run_fused_mesh_cards"),
+}
+_WHOLE_FUNCTIONS = {
+    "laser/cuda/mesh.py": ("steal_round", "CardExchange.start", "CardExchange.count", "CardExchange.plan",
+                           "CardExchange.pull", "CardExchange.steal_round", "CardExchange._wait",
+                           "CardExchange._record", "CardExchange._launch"),
+    "laser/cuda/kernels.py": ("launch_mesh_cards",),
+}
+_HOST_READS = {"item", "cpu", "tolist", "numpy", "synchronize"}
+_COERCIONS = {"bool", "int", "float"}
+
+
+def _host_syncs(nodes, lines):
+    """(line, what) of every host read in ``nodes``: ``.item()``,
+    ``.cpu()``, ``.tolist()``, ``.numpy()``, any ``.synchronize()``
+    (torch.cuda's, an event's, a stream's), and ``bool()``, ``int()`` or
+    ``float()`` of anything but a literal. A line marked ``noqa`` is
+    exempt, as in scripts/lint.py."""
+    out = []
+    for node in nodes:
+        for sub in ast.walk(node):
+            if not isinstance(sub, ast.Call) or "noqa" in lines[sub.lineno - 1]:
+                continue
+            fn = sub.func
+            if isinstance(fn, ast.Attribute) and fn.attr in _HOST_READS:
+                out.append((sub.lineno, f".{fn.attr}()"))
+            elif isinstance(fn, ast.Name) and fn.id in _COERCIONS and not all(
+                    isinstance(a, ast.Constant) for a in sub.args):
+                out.append((sub.lineno, f"{fn.id}()"))
+    return out
+
+
+def _functions(tree):
+    """{name or Class.name: FunctionDef} of a module's top level."""
+    out = {}
+    for node in tree.body:
+        if isinstance(node, ast.FunctionDef):
+            out[node.name] = node
+        elif isinstance(node, ast.ClassDef):
+            for sub in node.body:
+                if isinstance(sub, ast.FunctionDef):
+                    out[f"{node.name}.{sub.name}"] = sub
+    return out
+
+
+def _loop_syncs(rel, loops_only, names):
+    src = open(os.path.join(PORT, rel)).read()
+    lines = src.splitlines()
+    fns = _functions(ast.parse(src))
+    missing = [n for n in names if n not in fns]
+    assert not missing, f"{rel} has no {missing}"
+    found = []
+    for name in names:
+        fn = fns[name]
+        nodes = [n for n in ast.walk(fn) if isinstance(n, (ast.For, ast.While))] if loops_only else [fn]
+        if loops_only:
+            assert nodes, f"{rel}:{name} has no loop"
+            nodes = [stmt for loop in nodes for stmt in loop.body]
+        found += [(f"{rel}:{line}", what) for line, what in _host_syncs(nodes, lines)]
+    return found
+
+
+@pytest.mark.parametrize("rel", sorted(set(_LOOP_FUNCTIONS) | set(_WHOLE_FUNCTIONS)))
+def test_device_loops_make_no_host_sync(rel):
+    found = _loop_syncs(rel, True, _LOOP_FUNCTIONS.get(rel, ()))
+    found += _loop_syncs(rel, False, _WHOLE_FUNCTIONS.get(rel, ()))
+    assert not found, f"host syncs inside the device loops: {found}"
+
+
+def test_host_sync_check_finds_each_kind():
+    src = """
+def loop(t, ev, n):
+    for _ in range(int(n)):
+        a = t.item()
+        b = t.cpu()
+        c = t.tolist()
+        d = t.numpy()
+        torch.cuda.synchronize()
+        ev.synchronize()
+        e = bool(t.any())
+        f = int(t[0])
+        g = float(t.sum())
+        h = int(3)
+        i = int(t[1])  # noqa: a host value
+"""
+    lines = src.splitlines()
+    fn = ast.parse(src).body[0]
+    body = [stmt for loop in ast.walk(fn) if isinstance(loop, ast.For) for stmt in loop.body]
+    got = [what for _line, what in _host_syncs(body, lines)]
+    assert got == [".item()", ".cpu()", ".tolist()", ".numpy()", ".synchronize()", ".synchronize()", "bool()",
+                   "int()", "float()"]
