@@ -801,21 +801,22 @@ def _drain_ss_rings(bridge, st):
     from mythril_tpu_torch.laser.cuda.batch import RUNNING as _RUNNING
     from mythril_tpu_torch.laser.cuda.batch import TRAP_SS as _TRAP_SS
 
-    with _build.sync_point():
+    with obs.TRACER.span("round_loop.drain_read", tid="device", reads=2), _build.sync_point():
         status = st.status.cpu().numpy()
         alive = st.alive.cpu().numpy()
     mask = alive & (status == _TRAP_SS)
     if not mask.any():
         return st
     lanes = np.nonzero(mask)[0]
-    ss_cnt = st.ss_cnt.cpu().numpy()
-    ss_pc = st.ss_pc.cpu().numpy()
-    ss_key = st.ss_key.cpu().numpy()
-    ss_val = st.ss_val.cpu().numpy()
-    ss_is_load = st.ss_is_load.cpu().numpy()
-    ss_jd = st.ss_jd.cpu().numpy()
-    job_ids = st.job_id.cpu().numpy()
-    spill_id = st.spill_id.cpu().numpy().copy()
+    with obs.TRACER.span("round_loop.drain_read", tid="device", reads=8):
+        ss_cnt = st.ss_cnt.cpu().numpy()
+        ss_pc = st.ss_pc.cpu().numpy()
+        ss_key = st.ss_key.cpu().numpy()
+        ss_val = st.ss_val.cpu().numpy()
+        ss_is_load = st.ss_is_load.cpu().numpy()
+        ss_jd = st.ss_jd.cpu().numpy()
+        job_ids = st.job_id.cpu().numpy()
+        spill_id = st.spill_id.cpu().numpy().copy()
     for lane in lanes:
         n = int(ss_cnt[lane])
         events = [
@@ -962,6 +963,32 @@ def _run_device_mesh(cb, st, n_shards, tier, want_stats, deadline, bridge):
     return st, None
 
 
+def _kernel_launches() -> int:
+    """K1 + K3 + K4 launches so far (counted on the card only)."""
+    from mythril_tpu_torch.laser.cuda import engine, inloop_solve, megakernel
+
+    return engine.launches + inloop_solve.launches + megakernel.launches
+
+
+def _begin_super_round(max_rounds: int):
+    """Open the ``fused_super_round`` span of one dispatch (None with the
+    tracer off); ``_end_super_round`` adds the rounds it retired and the
+    kernel launches it queued."""
+    if not obs.TRACER.enabled:
+        return None
+    token = obs.TRACER.begin(
+        "fused_super_round", tid="device", max_rounds=max_rounds,
+        steps_per_round=_fused_steps_per_round(),
+    )
+    return token, _kernel_launches()
+
+
+def _end_super_round(span, rounds: int) -> None:
+    if span is not None:
+        token, launches = span
+        obs.TRACER.end(token, rounds=rounds, launches=_kernel_launches() - launches)
+
+
 def _run_mesh_fused(
     mesh, n_shards, cb, env, st, want_stats=False, deadline=None, bridge=None
 ):
@@ -986,11 +1013,10 @@ def _run_mesh_fused(
     pruned_visited = None
     with_solve = _inloop_enabled()
     # one pool per super-round, same cadence as the single-device path
-    pool = (
-        transfer.pool_to_device(solver_cache.GLOBAL.build_inloop_pool(), device=mesh.device)
-        if with_solve
-        else None
-    )
+    pool = None
+    if with_solve:
+        with obs.TRACER.span("round_loop.pool", tid="device_round"):
+            pool = transfer.pool_to_device(solver_cache.GLOBAL.build_inloop_pool(), device=mesh.device)
     totals = {
         "k": k,
         "rounds": 0,
@@ -1000,7 +1026,6 @@ def _run_mesh_fused(
         "pruned_steps": 0,
         "pruned_static": 0,
         "inloop_kills": 0,
-        "device_wall_s": 0.0,
         "n_shards": n_shards,
         "steal_events": 0,
         "steal_lanes": 0,
@@ -1017,6 +1042,7 @@ def _run_mesh_fused(
                 dispatch = min(dispatch, max(1, int(remaining / cost)))
         _cat.DEVICE_SLICES_TOTAL.inc()
         t0 = time.time()
+        span = _begin_super_round(dispatch)
         fo = megakernel.run_fused_mesh(
             mesh,
             cb,
@@ -1030,6 +1056,7 @@ def _run_mesh_fused(
         )
         st = fo.st
         stats = megakernel.decode_mesh_info(fo.info, n_shards)  # one fetch
+        _end_super_round(span, stats.rounds)
         wall = time.time() - t0
         totals["syncs"] += 1
         totals["rounds"] += stats.rounds
@@ -1038,7 +1065,6 @@ def _run_mesh_fused(
         totals["pruned_steps"] += stats.pruned_steps
         totals["pruned_static"] += stats.pruned_static
         totals["inloop_kills"] += stats.inloop_kills
-        totals["device_wall_s"] += wall
         if stats.inloop_kills:
             _cat.INLOOP_UNSAT_KILLS_TOTAL.inc(stats.inloop_kills)
         totals["steal_events"] += stats.steal_events
@@ -1068,13 +1094,6 @@ def _run_mesh_fused(
             _fused_round_cost_s[0] = (
                 sample if not prev else 0.5 * prev + 0.5 * sample
             )
-            for _ in range(stats.rounds):
-                _cat.ROUND_PHASE_S.observe(sample, "device_round_iter")
-                obs.TRACER.cut(
-                    "fused_round", "device_round_iter", rounds=stats.rounds,
-                    shards=n_shards,
-                )
-            obs.TRACER.end_cut("fused_round")
         rounds_left -= max(1, stats.rounds)
         resumed = False
         whole = mesh_lib.gather_batch(st, mesh)
@@ -1126,11 +1145,10 @@ def _run_device_fused(cb, st, cfg, want_stats=False, deadline=None, bridge=None)
     # recorded must-UNSAT sets: facts learned during THIS super-round's
     # drain arrive next super-round (the in-loop check is a screen, not
     # a verdict authority — see docs/SOLVER.md)
-    pool = (
-        transfer.pool_to_device(solver_cache.GLOBAL.build_inloop_pool(), device=DEVICE)
-        if with_solve
-        else None
-    )
+    pool = None
+    if with_solve:
+        with obs.TRACER.span("round_loop.pool", tid="device_round"):
+            pool = transfer.pool_to_device(solver_cache.GLOBAL.build_inloop_pool(), device=DEVICE)
     totals = {
         "k": k,
         "rounds": 0,
@@ -1140,7 +1158,6 @@ def _run_device_fused(cb, st, cfg, want_stats=False, deadline=None, bridge=None)
         "pruned_steps": 0,
         "pruned_static": 0,
         "inloop_kills": 0,
-        "device_wall_s": 0.0,
     }
     while rounds_left > 0:
         dispatch = rounds_left
@@ -1155,6 +1172,7 @@ def _run_device_fused(cb, st, cfg, want_stats=False, deadline=None, bridge=None)
                 dispatch = min(dispatch, max(1, int(remaining / cost)))
         _cat.DEVICE_SLICES_TOTAL.inc()
         t0 = time.time()
+        span = _begin_super_round(dispatch)
         fo = megakernel.run_fused(
             cb,
             default_env(),
@@ -1167,7 +1185,9 @@ def _run_device_fused(cb, st, cfg, want_stats=False, deadline=None, bridge=None)
             device=DEVICE,
         )
         st = fo.st
-        stats = megakernel.decode_info(fo.info)  # the one blocking fetch
+        with obs.TRACER.span("round_loop.info_fetch", tid="device", reads=1):
+            stats = megakernel.decode_info(fo.info)  # the one blocking fetch
+        _end_super_round(span, stats.rounds)
         wall = time.time() - t0
         totals["syncs"] += 1
         totals["rounds"] += stats.rounds
@@ -1176,11 +1196,10 @@ def _run_device_fused(cb, st, cfg, want_stats=False, deadline=None, bridge=None)
         totals["pruned_steps"] += stats.pruned_steps
         totals["pruned_static"] += stats.pruned_static
         totals["inloop_kills"] += stats.inloop_kills
-        totals["device_wall_s"] += wall
         if stats.inloop_kills:
             _cat.INLOOP_UNSAT_KILLS_TOTAL.inc(stats.inloop_kills)
         if stats.pruned_lanes or stats.inloop_kills:
-            with _build.sync_point():
+            with obs.TRACER.span("round_loop.pruned_fetch", tid="device", reads=1), _build.sync_point():
                 pv = fo.pruned_visited.cpu().numpy()
             pruned_visited = (
                 pv if pruned_visited is None else (pruned_visited | pv)
@@ -1193,17 +1212,6 @@ def _run_device_fused(cb, st, cfg, want_stats=False, deadline=None, bridge=None)
             _fused_round_cost_s[0] = (
                 sample if not prev else 0.5 * prev + 0.5 * sample
             )
-            # S3: the round_phase histogram stays meaningful under
-            # fusion — one synthetic per-round observation per fused
-            # iteration under its own label, so the super-round's
-            # "device_round" phase keeps its true wall time and the
-            # per-round cost stays queryable
-            for _ in range(stats.rounds):
-                _cat.ROUND_PHASE_S.observe(sample, "device_round_iter")
-                obs.TRACER.cut(
-                    "fused_round", "device_round_iter", rounds=stats.rounds
-                )
-            obs.TRACER.end_cut("fused_round")
         rounds_left -= max(1, stats.rounds)
         resumed = False
         if bridge is not None:

@@ -50,6 +50,7 @@ from typing import NamedTuple
 
 import torch
 
+from mythril_tpu_torch import obs
 from mythril_tpu_torch.laser.cuda import _build, engine, inloop_solve
 from mythril_tpu_torch.laser.cuda.batch import REVERTED, RUNNING, TRAP, CodeBank, Env, StateBatch
 
@@ -156,21 +157,23 @@ def run_fused(
     # card: everything queued, the loop condition on the device
     from mythril_tpu_torch.laser.cuda import kernels
 
-    s = StateBatch(*(x.clone() for x in st))
-    ctl = torch.zeros(4, dtype=torch.int32, device=dev)  # [r, continue, staged r, staged continue]
-    ctl[1] = (_any_running(s) & (max_rounds > 0)).to(torch.int32)
-    scratch = StateBatch(*(torch.empty_like(x) for x in s))
-    unsat = torch.zeros(L, dtype=torch.bool, device=dev)
-    args = kernels.StepArgs(cb, s)
-    k3 = kernels.UnsatArgs(pool, s, ctl, unsat) if with_solve else None
-    k4 = kernels.EpilogueArgs(cb, s, unsat, acc, pv, ctl, int(max_rounds), scratch)
-    hist = torch.zeros(256 if with_stats else 1, dtype=torch.int32, device=dev)
-    for _ in range(int(max_rounds)):  # the round's steps in one K1 launch
-        engine.step_n(cb, env, s, steps_per_round, device=dev, ctl=ctl, inplace=True, args=args,
-                      hist=hist if with_stats else None)
-        if with_solve:
-            inloop_solve.unsat_mask(pool, s, device=dev, ctl=ctl, out=unsat, args=k3)
-        round_epilogue(cb, s, unsat, acc, pv, ctl, max_rounds, scratch, args=k4)
+    with obs.TRACER.span("fused.setup", tid="device"):
+        s = StateBatch(*(x.clone() for x in st))
+        ctl = torch.zeros(4, dtype=torch.int32, device=dev)  # [r, continue, staged r, staged continue]
+        ctl[1] = (_any_running(s) & (max_rounds > 0)).to(torch.int32)
+        scratch = StateBatch(*(torch.empty_like(x) for x in s))
+        unsat = torch.zeros(L, dtype=torch.bool, device=dev)
+        args = kernels.StepArgs(cb, s)
+        k3 = kernels.UnsatArgs(pool, s, ctl, unsat) if with_solve else None
+        k4 = kernels.EpilogueArgs(cb, s, unsat, acc, pv, ctl, int(max_rounds), scratch)
+        hist = torch.zeros(256 if with_stats else 1, dtype=torch.int32, device=dev)
+    with obs.TRACER.span("fused.enqueue", tid="device"):
+        for _ in range(int(max_rounds)):  # the round's steps in one K1 launch
+            engine.step_n(cb, env, s, steps_per_round, device=dev, ctl=ctl, inplace=True, args=args,
+                          hist=hist if with_stats else None)
+            if with_solve:
+                inloop_solve.unsat_mask(pool, s, device=dev, ctl=ctl, out=unsat, args=k3)
+            round_epilogue(cb, s, unsat, acc, pv, ctl, max_rounds, scratch, args=k4)
     return FusedOut(s, _info(ctl[0], acc, s), pv, hist)
 
 

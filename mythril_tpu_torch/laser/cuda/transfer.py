@@ -42,6 +42,7 @@ import logging
 import numpy as np
 import torch
 
+from mythril_tpu_torch import obs
 from mythril_tpu_torch.laser.cuda import _build, convert, words
 from mythril_tpu_torch.laser.cuda.batch import BatchConfig, StateBatch, batch_shapes
 from mythril_tpu_torch.robustness import faults
@@ -280,20 +281,22 @@ class Staged:
 def stage(arrays_full_shapes, dev) -> Staged:
     """Serialize into one pinned host buffer and start its one copy to
     the card; K6's table names the device buffer and the planes."""
-    segs, shipped = _up_spec(arrays_full_shapes)
-    planes = [
-        torch.empty(s.shape, dtype=convert.torch_dtype(s.dtype), device=dev) for s in segs
-    ]
-    nbytes = sum(a.nbytes for a in shipped)
-    host = torch.empty(nbytes, dtype=torch.uint8, pin_memory=True)
-    hv = host.numpy()
-    off = 0
-    for a in shipped:
-        hv[off: off + a.nbytes] = a.view(np.uint8).ravel()
-        off += a.nbytes
-    buf = torch.empty(nbytes, dtype=torch.uint8, device=dev)
-    buf.copy_(host, non_blocking=True)
-    table, total, _kept = _up_table(segs, planes, buf.data_ptr())
+    with obs.TRACER.span("transfer.up.stage", tid="transfer_up"):
+        segs, shipped = _up_spec(arrays_full_shapes)
+        planes = [
+            torch.empty(s.shape, dtype=convert.torch_dtype(s.dtype), device=dev) for s in segs
+        ]
+        nbytes = sum(a.nbytes for a in shipped)
+        host = torch.empty(nbytes, dtype=torch.uint8, pin_memory=True)
+        hv = host.numpy()
+        off = 0
+        for a in shipped:
+            hv[off: off + a.nbytes] = a.view(np.uint8).ravel()
+            off += a.nbytes
+    with obs.TRACER.span("transfer.up.launch", tid="transfer_up"):
+        buf = torch.empty(nbytes, dtype=torch.uint8, device=dev)
+        buf.copy_(host, non_blocking=True)
+        table, total, _kept = _up_table(segs, planes, buf.data_ptr())
     return Staged(buf, segs, planes, table, total)
 
 
@@ -302,7 +305,8 @@ def unpack(staged: Staged) -> list:
     if staged.total:
         global unpack_launches
         unpack_launches += 1
-        _launch(staged.table, staged.total, staged.buf.device)
+        with obs.TRACER.span("transfer.up.launch", tid="transfer_up"):
+            _launch(staged.table, staged.total, staged.buf.device)
     return staged.planes
 
 
@@ -369,7 +373,9 @@ def batch_to_device(np_batch: dict, cfg, device="cuda") -> StateBatch:
     packed batch is mostly zeros, so the payload is typically a few
     hundred KB instead of the full batch)."""
     faults.fire(faults.TRANSFER_UP, context="batch_to_device")
-    return StateBatch(*upload(batch_parts(np_batch, cfg), device))
+    with obs.TRACER.span("transfer.up.parts", tid="transfer_up"):
+        parts = batch_parts(np_batch, cfg)
+    return StateBatch(*upload(parts, device))
 
 
 # -- K7: pack ------------------------------------------------------------
@@ -558,27 +564,42 @@ def batch_to_host(st: StateBatch, n_shards: int = 1) -> StateBatch:
         if f not in _SKIP_DOWN and f not in _BIG_DOWN
     )
     small_shapes = [(f, tuple(getattr(st, f).shape), _NP_DTYPES[f]) for f in small]
-    planes = _unpack_host(_fetch(pack(st, small)), small_shapes)
+    with obs.TRACER.span("transfer.down.small", tid="transfer_down"):
+        buf = _fetch(pack(st, small))
+    with obs.TRACER.span("transfer.down.unpack", tid="transfer_down"):
+        planes = _unpack_host(buf, small_shapes)
 
     cap = int(st.tape_op.shape[1])
     L = int(st.alive.shape[0])
-    alive = planes["alive"]
-    t_used, l_used = down_plan(planes["tape_len"], alive, cap)
-    n_alive = int(alive.sum())
-    shard_lanes = None
-    if not (n_alive < L and not alive[n_alive:].any()):
-        shard_lanes = shard_plan(alive, n_shards)
-    big_shapes = []
-    for f in _BIG_DOWN:
-        shape = tuple(getattr(st, f).shape)
-        if f in _TAPE_PLANES:
-            shape = (shape[0], _tape_cols(f, t_used)) + shape[2:]
-        if l_used is not None:
-            shape = (l_used,) + shape[1:]
-        elif shard_lanes is not None:
-            shape = (shard_lanes[0] * shard_lanes[1],) + shape[1:]
-        big_shapes.append((f, shape, _NP_DTYPES[f]))
-    planes.update(_unpack_host(_fetch(pack(st, _BIG_DOWN, t_used, l_used, shard_lanes)), big_shapes))
+    with obs.TRACER.span("transfer.down.big", tid="transfer_down"):
+        alive = planes["alive"]
+        t_used, l_used = down_plan(planes["tape_len"], alive, cap)
+        n_alive = int(alive.sum())
+        shard_lanes = None
+        if not (n_alive < L and not alive[n_alive:].any()):
+            shard_lanes = shard_plan(alive, n_shards)
+        big_shapes = []
+        for f in _BIG_DOWN:
+            shape = tuple(getattr(st, f).shape)
+            if f in _TAPE_PLANES:
+                shape = (shape[0], _tape_cols(f, t_used)) + shape[2:]
+            if l_used is not None:
+                shape = (l_used,) + shape[1:]
+            elif shard_lanes is not None:
+                shape = (shard_lanes[0] * shard_lanes[1],) + shape[1:]
+            big_shapes.append((f, shape, _NP_DTYPES[f]))
+        buf = _fetch(pack(st, _BIG_DOWN, t_used, l_used, shard_lanes))
+    with obs.TRACER.span("transfer.down.unpack", tid="transfer_down"):
+        planes.update(_unpack_host(buf, big_shapes))
+    with obs.TRACER.span("transfer.down.pad", tid="transfer_down"):
+        _pad_down(planes, st, cap, L, l_used, shard_lanes)
+    return StateBatch(**planes)
+
+
+def _pad_down(planes: dict, st: StateBatch, cap: int, L: int, l_used, shard_lanes) -> None:
+    """Bring the downloaded planes back to the batch's full shape, in
+    place: the sliced tape columns, the lane prefix or the per-shard lane
+    buckets, and the planes that never travel."""
     # pad sliced tape planes back to capacity (rows at or past tape_len
     # are dead by invariant, so zeros are equivalent)
     for f in _TAPE_PLANES:
@@ -609,4 +630,3 @@ def batch_to_host(st: StateBatch, n_shards: int = 1) -> StateBatch:
             planes[f] = full
     for name in _SKIP_DOWN:
         planes[name] = np.zeros(tuple(getattr(st, name).shape), _NP_DTYPES[name])
-    return StateBatch(**planes)

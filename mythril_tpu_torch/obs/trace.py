@@ -33,6 +33,8 @@ attribute check on the hot path.  The event buffer is a bounded ring
 rounds before the oldest drop; drops are counted).
 """
 
+import importlib
+import itertools
 import json
 import threading
 import time
@@ -74,15 +76,19 @@ class Tracer:
         # open "cut" spans, keyed by (track tid, pid, thread ident) so
         # concurrent job threads never close each other's rounds
         self._cuts: Dict[Tuple[str, int, int], Tuple[str, float, dict]] = {}
+        # span ids (0: none), each thread's open spans, the profiler ranges mirroring them
+        self._ids, self._open, self._mirror, self._mirrors = itertools.count(1), threading.local(), None, {}
 
     # -- lifecycle ----------------------------------------------------
 
-    def enable(self, capacity: Optional[int] = None) -> None:
+    def enable(self, capacity: Optional[int] = None, profiler: bool = False) -> None:
+        """``profiler``: each span also opens a ``torch.profiler`` range of its name."""
         with self._lock:
             if capacity is not None:
                 self._capacity = capacity
             if not self.enabled:
                 self._epoch = time.perf_counter()
+            self._mirror = importlib.import_module("torch.profiler").record_function if profiler else None
             self.enabled = True
 
     def disable(self) -> None:
@@ -119,25 +125,46 @@ class Tracer:
     def _live_span(
         self, name: str, tid: str, pid: int, args: dict
     ) -> Iterator[None]:
+        self._enter(name, args)
         t0 = time.perf_counter()
         try:
             yield
         finally:
             t1 = time.perf_counter()
+            self._exit(args)
             self._push((_SPAN, name, tid, pid, t0, t1 - t0, args))
+
+    def _enter(self, name: str, args: dict) -> None:
+        """Open a span on this thread: its ``id`` and ``parent`` go into ``args``."""
+        stack = self._open.__dict__.setdefault("ids", [])
+        args["id"], args["parent"] = next(self._ids), (stack[-1] if stack else 0)
+        stack.append(args["id"])
+        if self._mirror:
+            self._mirrors[args["id"]] = self._mirror(name).__enter__()
+
+    def _exit(self, args: dict) -> None:
+        stack = self._open.__dict__.get("ids", [])
+        if args["id"] in stack:
+            stack.remove(args["id"])
+        if args["id"] in self._mirrors:
+            self._mirrors.pop(args["id"]).__exit__(None, None, None)
 
     def begin(self, name: str, tid: Optional[str] = None, pid: int = 0, **args):
         """Explicit begin; pair with :meth:`end`. Returns an opaque
         token (or None when disabled)."""
         if not self.enabled:
             return None
+        self._enter(name, args)
         return (name, tid or name, pid, time.perf_counter(), args)
 
-    def end(self, token) -> None:
-        if token is None or not self.enabled:
+    def end(self, token, **more) -> None:
+        """Close ``begin``'s span; ``more`` adds to its args."""
+        if token is None:
             return
         name, tid, pid, t0, args = token
-        self._push((_SPAN, name, tid, pid, t0, time.perf_counter() - t0, args))
+        self._exit(args)
+        if self.enabled:
+            self._push((_SPAN, name, tid, pid, t0, time.perf_counter() - t0, dict(args, **more)))
 
     def mark(self, name: str, tid: str = "incident", pid: int = 0, **args):
         """Instant event (robustness incidents, fault injections)."""

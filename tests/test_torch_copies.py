@@ -45,6 +45,7 @@ EDITED = {
         "that of the job that started last", 12),
     "laser/evm/svm.py": ("the strategy probe and the lazy import point at the port's backend", 12),
     "obs/catalog.py": ("the solver-cache collector reads the port's solver_cache", 2),
+    "obs/trace.py": ("parent links and profiler-clock mirroring for the port's hand-off spans", 35),
     "robustness/retry.py": ("the port's backend/transfer; a kernel fault passes the round guard", 6),
     "interfaces/cli.py": (
         "the strategy choice cuda-batch replaces tpu-batch; --lanes and the new --device {cuda,cpu} set "
